@@ -4,8 +4,8 @@
 Inputs are numpy arrays made from a seed and handed to both packages. Build
 randomness cannot match (``jax.random`` vs ``torch.Generator``), so indexes
 are built once by the JAX package and carried across with
-``repro_torch.vdms.bundle_from_numpy``. Builders are cached per process so
-the test modules that share a worker share the reference builds.
+``repro_torch.vdms.bundle_from_numpy``. The reference builds are cached per
+process, so the test modules that share a worker share them.
 """
 import functools
 
