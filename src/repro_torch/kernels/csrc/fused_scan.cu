@@ -4,25 +4,26 @@
 // One warp per (query, segment), segments on the grid's y axis. The warp
 // probes the top-nprobe clusters, walks their member lists (a gather,
 // cheap on a GPU, where the TPU scanned the whole segment under a mask),
-// scores each candidate as sum_j (code_j * scale_j) * q_j in f32, one
-// candidate per lane, and keeps the top k with ties to the lowest local
-// id. See fused_scan.py for the bound and the design note.
+// scores each candidate as sum_j code_j * (scale_j * q_j) in f32, one
+// candidate per lane, with the scale folded into the query once, and keeps
+// the top k with ties to the lowest local id. See fused_scan.py for the
+// bound and the design note.
 #include "ivf_common.cuh"
 
 namespace {
 
-// One candidate's score from its code row (rw words of 4 codes each).
-__device__ __forceinline__ float sq8_row_dot(const int* row, int rw, const float* scs,
-                                             const float* qs) {
+// One candidate's score from its code row (rw words of 4 codes each) and
+// the scaled query.
+__device__ __forceinline__ float sq8_row_dot(const int* row, int rw, const float* qs) {
   float acc = 0.f;
   for (int w = 0; w < rw; ++w) {
     const int word = row[w];
     const char4 c = *reinterpret_cast<const char4*>(&word);
     const int j = 4 * w;
-    acc = fmaf((float)c.x * scs[j], qs[j], acc);
-    acc = fmaf((float)c.y * scs[j + 1], qs[j + 1], acc);
-    acc = fmaf((float)c.z * scs[j + 2], qs[j + 2], acc);
-    acc = fmaf((float)c.w * scs[j + 3], qs[j + 3], acc);
+    acc = fmaf((float)c.x, qs[j], acc);
+    acc = fmaf((float)c.y, qs[j + 1], acc);
+    acc = fmaf((float)c.z, qs[j + 2], acc);
+    acc = fmaf((float)c.w, qs[j + 3], acc);
   }
   return acc;
 }
@@ -38,20 +39,20 @@ __global__ void fused_sq8_kernel(const float* __restrict__ q, const int8_t* __re
   const bool active = b < B;
   const int P = nprobe * cap;
   extern __shared__ float smem[];
-  float* scs = smem;                 // d, shared by the block
-  float* cstage = scs + d;           // 32 * (d | 1), shared by the block
+  float* cstage = smem;              // 32 * (d | 1), shared by the block
   float* qs = cstage + 32 * (d | 1) + (size_t)warp * (d + nlist + 2 * (size_t)P + nprobe);
   float* csim = qs + d;              // nlist
   float* sc = csim + nlist;          // P
   int* lid = (int*)(sc + P);         // P
   int* probe = lid + P;              // nprobe
-  for (int j = threadIdx.x; j < d; j += blockDim.x) scs[j] = scale[j];
   if (active)
     for (int j = lane; j < d; j += 32) qs[j] = q[(size_t)b * d + j];
   __syncthreads();
   ivf::block_probe(qs, cents + (size_t)z * nlist * d, nlist, d, nprobe, cstage, csim, probe,
                    lane, active);
   if (!active) return;
+  for (int j = lane; j < d; j += 32) qs[j] *= scale[j];  // q_j -> scale_j * q_j
+  __syncwarp();
 
   const int8_t* cz = codes + (size_t)z * s * d;
   const int n = ivf::compact_candidates(members + (size_t)z * nlist * cap, probe, nprobe, cap,
@@ -60,9 +61,9 @@ __global__ void fused_sq8_kernel(const float* __restrict__ q, const int8_t* __re
     const int8_t* row = cz + (size_t)lid[p] * d;
     float acc = 0.f;
     if ((d & 3) == 0) {  // rows are 4-byte aligned: one load per 4 codes
-      acc = sq8_row_dot(reinterpret_cast<const int*>(row), d / 4, scs, qs);
+      acc = sq8_row_dot(reinterpret_cast<const int*>(row), d / 4, qs);
     } else {
-      for (int j = 0; j < d; ++j) acc = fmaf((float)row[j] * scs[j], qs[j], acc);
+      for (int j = 0; j < d; ++j) acc = fmaf((float)row[j], qs[j], acc);
     }
     sc[p] = acc;
   }
@@ -79,7 +80,7 @@ extern "C" int fused_ivf_sq8_topk(const float* q, const int8_t* codes, const flo
                                   int d, int nlist, int cap, int nprobe, int k, int mask_dead,
                                   void* stream) {
   const int P = nprobe * cap;
-  const size_t shared = (size_t)d + 32 * (size_t)(d | 1);
+  const size_t shared = 32 * (size_t)(d | 1);
   const size_t per_warp = d;
   const int warps = ivf::pick_warps(shared, per_warp, nlist, P, nprobe);
   if (warps == 0) return (int)cudaErrorInvalidValue;  // one query's lists exceed shared memory

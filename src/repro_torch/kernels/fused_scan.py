@@ -17,20 +17,22 @@ lowest local id first).
 
 Bound on the H100: operations. At the main path's shapes (1,024 queries, 289
 segments, nprobe 8 of 128 clusters, 88-slot lists, d = 100) the kernel moves
-about 300 MB (inputs read once, results written once) but does about 30
-GFLOP of f32 work (7.6 for the probe, 23 for the 76 M live candidates),
-which the card's 67 TFLOP/s f32 rate makes the larger time. Design: one warp
-per (query, segment), up to eight queries of one segment in a block,
-segments on the grid's y axis, so that the warps of a segment run together
-and its lists and codes stay in cache. The block stages the segment's
-centroids through shared memory 32 at a time for the probe, so they are read
-from device memory once per eight queries. The warp then compacts the live
-members of the probed lists with a ballot (a gather, cheap on a GPU, where
-the TPU masked a scan of the whole segment) and scores them one candidate
-per lane, keeping scores and ids in shared memory (up to 9,216 candidates,
-so the dynamic shared-memory limit is raised and fewer warps share a block).
-The top k is a merge of 32 per-lane sorted lists by warp-wide integer max-
-reductions; no score matrix reaches device memory.
+about 300 MB (inputs read once, results written once) but does about 23 GFLOP
+of f32 work (7.6 for the probe, 15.2 for the 76 M live candidates at a
+multiply and an add per code, 0.03 to fold the scale into each query once per
+segment), which the card's 67 TFLOP/s f32 rate makes the larger time. Design:
+one warp per (query, segment), up to eight queries of one segment in a block,
+segments on the grid's y axis, so that the warps of a segment run together and
+its lists and codes stay in cache. The block stages the segment's centroids
+through shared memory 32 at a time for the probe, so they are read from device
+memory once per eight queries. The warp then compacts the live members of the
+probed lists with a ballot (a gather, cheap on a GPU, where the TPU masked a
+scan of the whole segment) and scores them one candidate per lane against the
+query times the scale (so no code is dequantized on its own), keeping scores
+and ids in shared memory (up to 9,216 candidates, so the dynamic shared-memory
+limit is raised and fewer warps share a block). The top k is a merge of 32
+per-lane sorted lists by warp-wide integer max-reductions; no score matrix
+reaches device memory.
 """
 from __future__ import annotations
 

@@ -49,11 +49,8 @@ class VDMSTuningEnv:
         seed: int = 0,
         build_timeout: float = 120.0,
         repeats: int = 3,
-        workload: str = "static",
         device=None,
     ):
-        if workload != "static":
-            raise ValueError(f"only the static workload is ported, got {workload!r}")
         if dataset is None:
             raise ValueError("static workload requires dataset=")
         self.dataset = dataset
@@ -61,7 +58,6 @@ class VDMSTuningEnv:
         self.seed = seed
         self.build_timeout = build_timeout
         self.repeats = repeats
-        self.workload = workload
         self.device = resolve_device(device)
         self.cache: Dict[Tuple, Dict[str, float]] = {}
         self.n_evals = 0

@@ -55,7 +55,8 @@ def test_tuning_env_build_timeout_is_a_tuning_failure():
 
 
 def test_tuning_env_rejects_unported_workloads():
-    with pytest.raises(ValueError, match="static"):
+    # static only: the streaming workload's trace= / workload= are not ported
+    with pytest.raises(TypeError, match="workload"):
         VDMSTuningEnv(port_dataset(), device="cpu", workload="streaming")
 
 
