@@ -4,18 +4,24 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. the card's name and power limit (nvidia-smi); f32 matmuls pinned;
-  2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc;
+  1. the card's name and power limit (nvidia-smi); matmul precision pinned;
+  2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc,
+     one process per source, all at once;
   3. each kernel held against its plain PyTorch version on the card, at the
-     shapes the evaluation path gives it (glove-100-angular size, the
-     defaults of FLAT, IVF_SQ8 and IVF_PQ), and timed with CUDA events
-     beside the plain version, a library call where one exists, and its
-     bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, the
-     H100 SXM data-sheet peaks);
+     shapes its path gives it (glove-100-angular size, the defaults of FLAT,
+     IVF_SQ8 and IVF_PQ; glm4-9b prefill attention at batch 4 x 2048), and
+     timed with CUDA events beside the plain version, a library call where
+     one exists, and its bound (bytes over 3.35 TB/s or operations over the
+     peak of their type, the H100 SXM data-sheet figures);
   4. the evaluation path: ``VDMSTuningEnv(dataset, mode="wall")`` over the
      defaults of all seven index families in the session's order, with the
      kernels' launch counters reset just before and read just after;
-  5. a ``{"kernels": [...]}`` line, then the device line last.
+  5. the serving path: ``repro_torch.launch.serve.run`` on glm4-9b at full
+     width and depth (40 layers, random weights from seed 0), batch 4, a
+     2048-token prompt, 32 generated tokens, counters reset just before and
+     read just after; then prefill(t) + one decode step against prefill(t+1)
+     at full width;
+  6. a ``{"kernels": [...]}`` line, then the card line and the device line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
@@ -23,6 +29,7 @@ repository's ``src/repro_torch`` beside this file.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -31,9 +38,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): HBM3 bandwidth, f32 outside the tensor cores
+# H100 SXM data-sheet peaks (dense): HBM3 bandwidth, f32 outside the tensor
+# cores, bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 TOL = 1e-5  # f32 scores of unit vectors: both versions accumulate d = 100 terms in f32
 GLOVE_N = 1_183_514  # glove-100-angular's base vectors
 N_QUERIES = 1000  # glove-100-angular has 10,000; cut so the exact ground truth stays cheap
@@ -59,8 +68,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOP_PER_S * 1e3
+def bound(nbytes: float, flops: float, flop_per_s: float = PEAK_F32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -182,6 +191,131 @@ def kernel_checks(ds, space, device):
     return rows
 
 
+# glm4-9b's prefill attention at the serving phase's shape: batch 4, 2048
+# tokens, 32 query heads over 2 kv heads, head dim 128, causal
+FLASH_SHAPE = (4, 2048, 32, 2, 128)
+# |out| < 1 (v uniform in [-1, 1)), so 7.8e-3 allows a bf16 rounding flip of
+# the output; f32: the same arithmetic summed in other orders
+FLASH_TOL = {"f32": 2e-5, "bf16": 7.8e-3}
+SERVE = dict(batch=4, prompt_len=2048, gen=32)
+CONSISTENCY_TOL = 5e-2  # relative L2 of the bf16 last-token logits
+
+
+def flash_check(device):
+    """Phase 3, flash attention: the kernel against its plain version at
+    glm4-9b's prefill shape, in f32 and in bf16 (the serving dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    b, s, hq, hkv, dh = FLASH_SHAPE
+    g = torch.Generator(device=device).manual_seed(0)
+    errs, times = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q = torch.randn(b, s, hq, dh, generator=g, device=device).to(dtype)
+        k = torch.randn(b, s, hkv, dh, generator=g, device=device).to(dtype)
+        v = (torch.rand(b, s, hkv, dh, generator=g, device=device) * 2 - 1).to(dtype)
+        got = ops.flash_attention(q, k, v)
+        want = ops.flash_attention(q, k, v, impl="torch")
+        torch.cuda.synchronize()
+        errs[name] = float((got.float() - want.float()).abs().max())
+        print(f"  flash_attention {name}: max abs difference {errs[name]:.3e}", flush=True)
+        if not errs[name] <= FLASH_TOL[name]:
+            fail(f"flash_attention {name}: max abs difference {errs[name]} > {FLASH_TOL[name]}")
+        times[name] = cuda_ms(lambda: ops.flash_attention(q, k, v), 5)
+        del got, want
+    # the bf16 inputs: the plain version and the library call beside the kernel
+    plain_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, impl="torch"), 3, warmup=1)
+    torch.cuda.empty_cache()
+    qh = q.transpose(1, 2).contiguous()  # SDPA's (b, h, s, dh), kv heads expanded to hq
+    kh, vh = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous() for t in (k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 10)
+    lib_err = float((F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).transpose(1, 2).float()
+                     - ops.flash_attention(q, k, v).float()).abs().max())
+    flops = 4.0 * dh * b * hq * (s * (s + 1) // 2)  # Q.K and P.V over the visible causal half
+    bms, by = bound(nbytes(q, k, v) + nbytes(q), flops, PEAK_BF16_FLOP_PER_S)
+    row = dict(replaces="src/repro/kernels/flash_attention.py:88",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu", max_abs_err=errs["bf16"],
+               ms=times["bf16"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+               bound_by=by, shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal")
+    print(f"  flash_attention f32: kernel {times['f32']:.4f} ms, max abs err {errs['f32']:.3e}; "
+          f"f32 CUDA-core bound {flops / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms "
+          f"({flops / 1e9:.1f} GFLOP); SDPA (kv heads expanded) vs kernel max abs diff "
+          f"{lib_err:.3e}", flush=True)
+    print(f"  flash_attention: {row['shape']}: kernel {row['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {library_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_phase(device):
+    """Phase 5: the serving entry point on glm4-9b at full width and depth,
+    then the prefill/decode consistency check at the same width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run
+    from repro_torch.models import build_model, transformer as tr
+
+    cfg = get_arch("glm4-9b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run("glm4-9b", smoke=False, **SERVE, seed=0)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    run_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    toks = out["tokens"]
+    print(f"  glm4-9b x{cfg.n_layers}: prefill {out['prefill_s']:.4f} s for "
+          f"{SERVE['batch']} x {SERVE['prompt_len']} tokens, decode "
+          f"{out['decode_tokens_per_s']:.1f} tok/s ({SERVE['gen']} steps in {out['decode_s']:.4f} s), "
+          f"peak device memory {peak_gib:.2f} GiB, launches {launches}, run() {run_s:.1f} s",
+          flush=True)
+    if not out["logits_finite"]:
+        fail("serve: non-finite logits")
+    if toks.shape != (SERVE["batch"], SERVE["gen"] + 1) or toks.min() < 0 or toks.max() >= cfg.vocab_padded:
+        fail(f"serve: tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}]")
+    if launches["flash_attention"] != cfg.n_layers:
+        fail(f"serve: {launches['flash_attention']} flash_attention launches, expected one per "
+             f"layer ({cfg.n_layers}) at prefill and none at decode")
+
+    # prefill(t) + decode(token t) against prefill(t + 1), full width (twin of
+    # tests/test_models.py::test_dense_decode_matches_full_forward)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in params.parameters())
+    b, t = SERVE["batch"], SERVE["prompt_len"] - 1
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (b, t + 1)), device=device)
+    _, cache = tr.prefill(params, {"tokens": tokens[:, :-1]}, cfg, cache_len=t + 1)
+    dec, _ = tr.decode_step(params, cache, tokens[:, -1], t, cfg)
+    del cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _ = tr.prefill(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t0
+    dec, full = dec.float(), full.float()
+    rel = float((dec - full).norm() / full.norm())
+    same = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    print(f"  {n_params / 1e9:.3f} B parameters; prefill({t}) + decode vs prefill({t + 1}): "
+          f"relative L2 of the last-token logits {rel:.3e}, same argmax in {same:.2f} of rows; "
+          f"warm prefill (the third in this phase) of {b} x {t + 1} tokens {prefill2_s:.4f} s", flush=True)
+    if not rel <= CONSISTENCY_TOL:
+        fail(f"serve: prefill/decode logits differ by {rel} (relative L2) > {CONSISTENCY_TOL}")
+    del params, dec, full
+    torch.cuda.empty_cache()
+    return dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                decode_tokens_per_s=out["decode_tokens_per_s"], peak_gib=peak_gib,
+                launches=launches, consistency_rel_l2=rel, warm_prefill_s=prefill2_s,
+                n_params=n_params)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
 
@@ -194,7 +328,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.device import pin_f32_matmul
+    from repro_torch.device import pin_matmul_precision
     from repro_torch.kernels import _build, ops
     from repro_torch.vdms import VDMSTuningEnv, make_dataset, make_space
     from repro_torch.core import TuningFailure
@@ -205,7 +339,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     card = smi[0].strip()
     print(f"[1] card: {card}", flush=True)
-    pin_f32_matmul()
+    pin_matmul_precision()
     device = torch.device("cuda")
 
     # 2. build
@@ -230,6 +364,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     print("[3] kernels against plain versions", flush=True)
     rows = kernel_checks(ds, space, device)
+    rows["flash_attention"] = flash_check(device)
 
     # 4. the evaluation path
     print("[4] VDMSTuningEnv(mode='wall') over the seven defaults", flush=True)
@@ -256,11 +391,18 @@ def main() -> int:
             fail(f"{t}: implausible result {r}")
     if results["FLAT"]["recall"] < 0.99:
         fail(f"FLAT recall {results['FLAT']['recall']} < 0.99")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk"):
+        if launches[name] == 0:
             fail(f"kernel {name} was not launched on the evaluation path")
+    del env, ds
+    gc.collect()
 
-    # 5. results
+    # 5. the serving path
+    print("[5] serve glm4-9b (40 layers) batch 4 x 2048 + 32", flush=True)
+    serve = serve_phase(device)
+    launches["flash_attention"] = serve["launches"]["flash_attention"]
+
+    # 6. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -268,7 +410,7 @@ def main() -> int:
              library_ms=r["library_ms"])
         for name, r in rows.items()
     ]
-    print(json.dumps({"seven_defaults": results, "card": card,
+    print(json.dumps({"seven_defaults": results, "serve": serve, "card": card,
                       "total_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,16 +22,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         device = "cuda"
     device = torch.device(device)
     if device.type == "cuda":
-        pin_f32_matmul()
+        pin_matmul_precision()
     return device
 
 
-def pin_f32_matmul() -> None:
-    """Full-f32 matrix products on the card (no TF32), as the JAX package
-    contracts in f32 (``preferred_element_type=float32``)."""
+def pin_matmul_precision() -> None:
+    """Matrix products on the card as the JAX package contracts them: f32
+    in full f32 (no TF32; ``preferred_element_type=float32``), and bf16
+    products summed in f32 (no reduced-precision reduction), as XLA does."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def sync(device: torch.device) -> None:

@@ -18,12 +18,13 @@ from typing import Dict, Optional
 import torch
 
 from .distance import distance_cuda, distance_torch
+from .flash_attention import flash_attention_cuda, flash_attention_torch
 from .fused_adc import fused_ivf_pq_topk_cuda, fused_ivf_pq_topk_torch
 from .fused_scan import fused_ivf_sq8_topk_cuda, fused_ivf_sq8_topk_torch
 from .ref import topk_by_score, topk_stable
 
 __all__ = [
-    "KERNELS", "batched_ip", "fused_ivf_pq_topk", "fused_ivf_sq8_topk", "l2_distance",
+    "KERNELS", "batched_ip", "flash_attention", "fused_ivf_pq_topk", "fused_ivf_sq8_topk", "l2_distance",
     "launch_counts", "reset_launch_counts", "topk_by_score", "topk_stable",
 ]
 
@@ -32,6 +33,7 @@ KERNELS = {
     "distance": distance_cuda,
     "fused_ivf_sq8_topk": fused_ivf_sq8_topk_cuda,
     "fused_ivf_pq_topk": fused_ivf_pq_topk_cuda,
+    "flash_attention": flash_attention_cuda,
 }
 
 
@@ -85,3 +87,12 @@ def fused_ivf_pq_topk(q, lut, codes, centroids, members, gids, *, nprobe: int, k
     fn = fused_ivf_pq_topk_cuda if _use_kernel(impl, q) else fused_ivf_pq_topk_torch
     return fn(q, lut, codes, centroids, members, gids, nprobe=nprobe, k=k,
               mask_dead=mask_dead)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    impl: Optional[str] = None):
+    """Attention forward with GQA: q (b, sq, hq, dh), k and v (b, sk, hkv, dh)
+    -> (b, sq, hq, dh) in q's dtype; queries at the tail of the key axis,
+    optional sliding ``window``; f32 or bf16, f32 softmax and accumulation."""
+    fn = flash_attention_cuda if _use_kernel(impl, q) else flash_attention_torch
+    return fn(q, k, v, causal=causal, window=window)

@@ -69,3 +69,46 @@ def test_fused_kernels(dev, k, mask_dead):
         got = fn(*args, **kw)
         want = fn(*args, **kw, impl="torch")
         assert_topk_match(*(t.cpu() for t in got), *(t.cpu() for t in want))
+
+
+def _attn_inputs(dev, dtype, b, sq, sk, hq, hkv, dh, seed=0):
+    """q, k ~ N(0, 1); v uniform in [-1, 1), so |out| < 1 and one bf16 ulp of
+    the output is at most 2**-8."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dtype)
+    v = (torch.rand(b, sk, hkv, dh, generator=g, device=dev) * 2 - 1).to(dtype)
+    return q, k, v
+
+
+# f32: other summation orders over up to 200 keys; bf16: one ulp of the output
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-8}
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel(dev, dtype, mask, dh):
+    q, k, v = _attn_inputs(dev, dtype, 2, 150, 200, 8, 2, dh, seed=dh)
+    kw = dict(causal=mask != "bidirectional", window=48 if mask == "window" else None)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, **kw, impl="torch")
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=ATTN_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_strides_and_masked_rows(dev, dtype):
+    """k and v as strided views of one (b, sk, 2, hkv, dh) tensor, and more
+    queries than keys: the first sq - sk causal rows see no key and give 0."""
+    q, _, _ = _attn_inputs(dev, dtype, 2, 130, 1, 4, 2, 16)
+    kv = (torch.rand(2, 70, 2, 2, 16, device=dev) * 2 - 1).to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q, k, v, impl="torch")
+    assert not bool(got[:, :60].any())
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=ATTN_TOL[dtype], rtol=0)
