@@ -9,19 +9,34 @@ Phases, each fatal on failure:
      one process per source, all at once;
   3. each kernel held against its plain PyTorch version on the card, at the
      shapes its path gives it (glove-100-angular size, the defaults of FLAT,
-     IVF_SQ8 and IVF_PQ; glm4-9b prefill attention at batch 4 x 2048), and
-     timed with CUDA events beside the plain version, a library call where
-     one exists, and its bound (bytes over 3.35 TB/s or operations over the
-     peak of their type, the H100 SXM data-sheet figures);
+     IVF_SQ8 and IVF_PQ; ``pq_adc`` at 1,024 queries x 32 IVF_PQ segments of
+     codes; glm4-9b prefill attention at batch 4 x 2048), and timed with
+     CUDA events beside the plain version, a library call where one exists,
+     and its bound (bytes over 3.35 TB/s or operations over the peak of
+     their type, the H100 SXM data-sheet figures);
   4. the evaluation path: ``VDMSTuningEnv(dataset, mode="wall")`` over the
      defaults of all seven index families in the session's order, with the
      kernels' launch counters reset just before and read just after;
-  5. the serving path: ``repro_torch.launch.serve.run`` on glm4-9b at full
+  5. the kernel benchmark (``repro_torch.bench.bench_kernels``): its kernel
+     section (each kernel held against its plain version within its
+     tolerance; ``pq_adc``'s row of the kernels line), then its pipeline
+     section on the glove-100-angular data with the fused-speedup gate and
+     composed/fused set identity (IVF_PQR included), counters reset just
+     before and read just after;
+  6. the tuning loop: ``repro_torch.launch.quickstart.run`` on the same
+     data in analytic mode for 20 observations (the seven defaults, then
+     GP-driven rounds), interrupted at 12, restored from its JSON checkpoint
+     and run again to 20; the resumed history must equal the uninterrupted
+     one, and no evaluation may fail except by a build timeout or device
+     memory; counters reset just before and read just after; then the
+     kernel of each GP-driven FLAT / IVF_SQ8 / IVF_PQ configuration held
+     against its plain version at that configuration's shapes;
+  7. the serving path: ``repro_torch.launch.serve.run`` on glm4-9b at full
      width and depth (40 layers, random weights from seed 0), batch 4, a
      2048-token prompt, 32 generated tokens, counters reset just before and
      read just after; then prefill(t) + one decode step against prefill(t+1)
      at full width;
-  6. a ``{"kernels": [...]}`` line, then the card line and the device line.
+  8. a ``{"kernels": [...]}`` line, then the card line and the device line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
@@ -108,9 +123,14 @@ def check_topk(name, got, want):
     return err
 
 
-def kernel_checks(ds, space, device):
-    """Phase 3: each kernel against its plain version at the main path's
-    shapes, on the data of the seven defaults' kernel-backed families."""
+def config_case(ds, cfg, device):
+    """The kernel that ``cfg``'s search launches (FLAT: distance, one call
+    per query chunk; IVF_SQ8 / IVF_PQ: their fused kernels, one call over
+    every chunk), at the shapes that configuration gives it, on an instance
+    built from ``ds``. Returns None for a family that launches no kernel,
+    else a dict with ``call(impl)``, ``check(got, want)`` (the largest
+    difference, fatal beyond the tolerance), the work (bytes, operations),
+    a shape note and the instance's arrays for further checks."""
     import torch
 
     from repro_torch.kernels import ops
@@ -118,77 +138,139 @@ def kernel_checks(ds, space, device):
     from repro_torch.vdms import VDMSInstance
     from repro_torch.vdms.fused import pq_lut
 
-    rows = {}
-    # distance: FLAT's per-chunk call, (32, d) queries against every segment
-    inst = VDMSInstance(ds, space.default_config("FLAT"), device=device)
-    q = inst._chunked_queries(ds.queries)[0]
-    data = inst.bundle.arrays["data"]
-    got = ops.batched_ip(q, data)
-    want = ops.batched_ip(q, data, impl="torch")
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if err > TOL:
-        fail(f"distance: max abs difference {err} > {TOL}")
-    for kind, x in (("l2", data), ("ip-bf16", data.to(torch.bfloat16))):
-        fn = ops.l2_distance if kind == "l2" else ops.batched_ip
-        e = float((fn(q, x) - fn(q, x, impl="torch")).abs().max())
-        print(f"  distance {kind}: max abs difference {e:.3e}")
-        if e > 10 * TOL:  # l2 adds two norms near 1 to the product
-            fail(f"distance {kind}: max abs difference {e}")
-    b, d = q.shape
-    n_seg, s, _ = data.shape
-    bms, by = bound(nbytes(q, data) + n_seg * b * s * 4, 2.0 * b * n_seg * s * d)
-    rows["distance"] = dict(
-        replaces="src/repro/kernels/distance.py:61",
-        source="src/repro_torch/kernels/csrc/distance.cu", max_abs_err=err, ms=cuda_ms(lambda: ops.batched_ip(q, data), 20),
-        plain_ms=cuda_ms(lambda: ops.batched_ip(q, data, impl="torch"), 20),
-        library_ms=cuda_ms(lambda: torch.matmul(q, data.transpose(1, 2)), 20),
-        bound_ms=bms, bound_by=by, shape=f"q {tuple(q.shape)} x {tuple(data.shape)} f32")
-    del inst, data, got, want
+    fam = cfg["index_type"]
+    if fam not in ("FLAT", "IVF_SQ8", "IVF_PQ"):
+        return None
+    inst = VDMSInstance(ds, cfg, seed=0, device=device)
+    a, st = inst.bundle.arrays, inst.bundle.static
+    if fam == "FLAT":  # (B, d) queries of one chunk against every segment
+        q, data = inst._chunked_queries(ds.queries)[0], a["data"]
+        b, d = q.shape
+        n_seg, s, _ = data.shape
 
-    # fused SQ8 / PQ: the hooks' one call per search, every chunk flattened
-    for fam, name, src, line in (
-        ("IVF_SQ8", "fused_ivf_sq8_topk", "fused_scan.cu", "src/repro/kernels/fused_scan.py:178"),
-        ("IVF_PQ", "fused_ivf_pq_topk", "fused_adc.cu", "src/repro/kernels/fused_adc.py:79"),
-    ):
-        inst = VDMSInstance(ds, space.default_config(fam), device=device)
-        a, st = inst.bundle.arrays, inst.bundle.static
-        qa = inst._chunked_queries(ds.queries).reshape(-1, ds.dim)
-        k = min(inst.k_seg, ds.k) if inst._clamp_ok else inst.k_seg
-        common = dict(nprobe=st["nprobe"], k=k, mask_dead=inst._clamp_ok)
-        if fam == "IVF_SQ8":
-            args = (qa, a["codes"], a["scale"], a["centroids"], a["members"], a["gids"])
-            fn = ops.fused_ivf_sq8_topk
-        else:
-            args = (qa, pq_lut(qa, a["codebooks"]), a["codes"], a["centroids"], a["members"],
-                    a["gids"])
-            fn = ops.fused_ivf_pq_topk
-        got = fn(*args, **common)
-        want = fn(*args, **common, impl="torch")
+        def check(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            if err > TOL:
+                fail(f"distance at {shape}: max abs difference {err} > {TOL}")
+            return err
+
+        shape = f"q {tuple(q.shape)} x {tuple(data.shape)} {str(data.dtype).split('.')[-1]}"
+        return dict(name="distance", replaces="src/repro/kernels/distance.py:61",
+                    source="src/repro_torch/kernels/csrc/distance.cu",
+                    call=lambda impl: ops.batched_ip(q, data, impl=impl), check=check,
+                    library=lambda: torch.matmul(q, data.transpose(1, 2)),
+                    work=(nbytes(q, data) + n_seg * b * s * 4, 2.0 * b * n_seg * s * d),
+                    shape=shape, q=q, data=data)
+    qa = inst._chunked_queries(ds.queries).reshape(-1, ds.dim)
+    k = min(inst.k_seg, ds.k) if inst._clamp_ok else inst.k_seg
+    common = dict(nprobe=st["nprobe"], k=k, mask_dead=inst._clamp_ok)
+    if fam == "IVF_SQ8":
+        name, src, line = "fused_ivf_sq8_topk", "fused_scan.cu", "src/repro/kernels/fused_scan.py:178"
+        args = (qa, a["codes"], a["scale"], a["centroids"], a["members"], a["gids"])
+        fn = ops.fused_ivf_sq8_topk
+    else:
+        name, src, line = "fused_ivf_pq_topk", "fused_adc.cu", "src/repro/kernels/fused_adc.py:79"
+        args = (qa, pq_lut(qa, a["codebooks"]), a["codes"], a["centroids"], a["members"],
+                a["gids"])
+        fn = ops.fused_ivf_pq_topk
+    live = int((probe_candidates(qa, a["centroids"], a["members"], st["nprobe"]) >= 0).sum())
+    n_seg, nlist, cap = a["members"].shape
+    probe_flops = 2.0 * n_seg * qa.shape[0] * nlist * ds.dim
+    if fam == "IVF_SQ8":  # a multiply-add per code; the scale folded into q per segment
+        score_flops = live * 2.0 * ds.dim + n_seg * qa.shape[0] * ds.dim
+    else:  # m LUT adds per candidate
+        score_flops = live * float(st["m"])
+    shape = (f"B={qa.shape[0]} n_seg={n_seg} nlist={nlist} nprobe={st['nprobe']} cap={cap} "
+             f"k={k} live_candidates={live}" + (f" m={st['m']}" if fam == "IVF_PQ" else ""))
+    return dict(name=name, replaces=line, source=f"src/repro_torch/kernels/csrc/{src}",
+                call=lambda impl: fn(*args, **common, impl=impl),
+                check=lambda got, want: check_topk(f"{name} at {shape}", got, want),
+                library=None,
+                work=(nbytes(*args) + 2 * n_seg * qa.shape[0] * k * 4, probe_flops + score_flops),
+                shape=shape, args=args, m=st.get("m"))
+
+
+def kernel_checks(ds, space, device):
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes, on the data of the seven defaults' kernel-backed families."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rows = {}
+    for fam in ("FLAT", "IVF_SQ8", "IVF_PQ"):
+        case = config_case(ds, space.default_config(fam), device)
+        got, want = case["call"](None), case["call"]("torch")
         torch.cuda.synchronize()
-        err = check_topk(name, got, want)
-        live = int((probe_candidates(qa, a["centroids"], a["members"], st["nprobe"]) >= 0).sum())
-        n_seg, nlist, _ = a["members"].shape
-        probe_flops = 2.0 * n_seg * qa.shape[0] * nlist * ds.dim
-        if fam == "IVF_SQ8":  # a multiply-add per code; the scale folded into q per segment
-            score_flops = live * 2.0 * ds.dim + n_seg * qa.shape[0] * ds.dim
-        else:  # m LUT adds per candidate
-            score_flops = live * float(st["m"])
-        bms, by = bound(nbytes(*args) + 2 * got[0].numel() * 4, probe_flops + score_flops)
-        rows[name] = dict(
-            replaces=line, source=f"src/repro_torch/kernels/csrc/{src}", max_abs_err=err,
-            ms=cuda_ms(lambda: fn(*args, **common), 5),
-            plain_ms=cuda_ms(lambda: fn(*args, **common, impl="torch"), 3, warmup=1),
-            library_ms=None, bound_ms=bms, bound_by=by,
-            shape=f"B={qa.shape[0]} n_seg={n_seg} nlist={nlist} nprobe={st['nprobe']} "
-                  f"cap={a['members'].shape[2]} k={k} live_candidates={live}")
-        del inst, a, args, got, want
+        err = case["check"](got, want)
+        del got, want
+        if fam == "FLAT":  # the other epilogue and the bf16 storage
+            q, data = case["q"], case["data"]
+            for kind, x in (("l2", data), ("ip-bf16", data.to(torch.bfloat16))):
+                fn = ops.l2_distance if kind == "l2" else ops.batched_ip
+                e = float((fn(q, x) - fn(q, x, impl="torch")).abs().max())
+                print(f"  distance {kind}: max abs difference {e:.3e}")
+                if e > 10 * TOL:  # l2 adds two norms near 1 to the product
+                    fail(f"distance {kind}: max abs difference {e}")
+        n_ms, n_plain, plain_warmup = (20, 20, 2) if fam == "FLAT" else (5, 3, 1)
+        bms, by = bound(*case["work"])
+        call = case["call"]
+        rows[case["name"]] = dict(
+            replaces=case["replaces"], source=case["source"], max_abs_err=err,
+            ms=cuda_ms(lambda: call(None), n_ms),
+            plain_ms=cuda_ms(lambda: call("torch"), n_plain, warmup=plain_warmup),
+            library_ms=cuda_ms(case["library"], 20) if case["library"] else None,
+            bound_ms=bms, bound_by=by, shape=case["shape"])
+        if fam == "IVF_PQ":  # pq_adc at the evaluation path's scale: these queries'
+            # tables against the codes of the first 32 segments
+            lut, codes = case["args"][1], case["args"][2]
+            pq_adc_check(lut, codes[:32].reshape(-1, case["m"]).int())
+        del case, call
     torch.cuda.empty_cache()
     for name, r in rows.items():
         print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"max abs err {r['max_abs_err']:.3e}", flush=True)
     return rows
+
+
+def pq_adc_check(lut, codes):
+    """``pq_adc`` against its plain version at the evaluation path's scale
+    (the same summing order, so the difference must be 0), timed beside the
+    plain version and the one-hot ``torch.matmul`` (the one-hot built once,
+    outside the timing), with int32 and with byte codes. Its kernels-line
+    row comes from the kernel benchmark, pq_adc's own path."""
+    import torch
+
+    from repro_torch.bench.bench_kernels import onehot_codes
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()["pq_adc"]
+    got = ops.pq_adc(lut, codes)
+    want = ops.pq_adc(lut, codes, impl="torch")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err != 0.0:
+        fail(f"pq_adc: max abs difference {err} != 0 at lut {tuple(lut.shape)}")
+    q, m, c = lut.shape
+    onehot = onehot_codes(codes, c)
+    flat = lut.reshape(q, m * c)
+    lib_err = float((torch.matmul(flat, onehot) - got).abs().max())
+    bms, by = bound(nbytes(lut, codes, got), float(q) * codes.shape[0] * (m - 1))
+    ms = cuda_ms(lambda: ops.pq_adc(lut, codes), 20)
+    plain_ms = cuda_ms(lambda: ops.pq_adc(lut, codes, impl="torch"), 5)
+    library_ms = cuda_ms(lambda: torch.matmul(flat, onehot), 10)
+    # the same call with the codes stored as bytes (what an index keeps): no
+    # range check (no host synchronisation) and no conversion in the wrapper
+    codes8 = codes.to(torch.uint8)
+    if not torch.equal(ops.pq_adc(lut, codes8), got):
+        fail("pq_adc: uint8 codes give another result than int32 codes")
+    u8_ms = cuda_ms(lambda: ops.pq_adc(lut, codes8), 20)
+    print(f"  pq_adc: lut {tuple(lut.shape)} codes {tuple(codes.shape)}: max abs err {err:.3e} "
+          f"(one-hot matmul {lib_err:.3e}), kernel {ms:.4f} ms (uint8 codes {u8_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, one-hot matmul {library_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), launches in this check {ops.launch_counts()['pq_adc'] - before}", flush=True)
+    del onehot, got, want
 
 
 # glm4-9b's prefill attention at the serving phase's shape: batch 4, 2048
@@ -316,6 +398,114 @@ def serve_phase(device):
                 n_params=n_params)
 
 
+# the tuning-loop phase: the quickstart session at full size
+SESSION = dict(n_iters=20, interrupt_at=12)
+FAILURES_ALLOWED = ("index build exceeded", "out of memory")  # build timeout, device memory
+
+
+def bench_phase(ds, device):
+    """Phase 5: the kernel benchmark's two sections through its run
+    functions, the pipeline section on ``ds`` with the speedup gate."""
+    import torch
+
+    from repro_torch.bench import bench_kernels
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:  # holds each kernel against its plain version within its tolerance
+        kern = bench_kernels.run(device=device, repeats=20)
+    except AssertionError as e:
+        fail(f"bench kernels: {e}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"  kernel section {time.perf_counter() - t0:.1f} s, launches {launches}")
+    for name, r in kern.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"])  # all f32 work
+        print(f"  {name}: cuda {r['cuda_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs "
+              f"err {r['max_abs_err']:.3e} (tolerance {r['tol']:g} x max |plain|)", flush=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        pipes = bench_kernels.run_pipelines(dataset=ds, repeats=3, check_speedup=True,
+                                            device=device)
+    except AssertionError as e:
+        fail(f"bench pipelines: {e}")
+    torch.cuda.synchronize()
+    pipe_launches = ops.launch_counts()
+    print(f"  pipeline section {time.perf_counter() - t0:.1f} s, launches {pipe_launches}")
+    for fam, r in pipes.items():
+        print(f"  {fam:8s} composed {r['composed_qps']:.1f} QPS, fused {r['fused_qps']:.1f} QPS "
+              f"({r['speedup']:.2f}x), recall {r['recall']:.4f}, same sets on 32 queries "
+              f"{r.get('same_sets_32', 'n/a (no fused hook)')}", flush=True)
+    if not pipes["IVF_PQR"].get("same_sets_32"):
+        fail("bench pipelines: IVF_PQR set identity was not checked")
+    return dict(kernels=kern, kernel_launches=launches, pipelines=pipes,
+                pipeline_launches=pipe_launches)
+
+
+def session_phase(ds, device):
+    """Phase 6: the quickstart's tuning session at full size, with its
+    checkpoint/resume check."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+    from repro_torch.vdms import make_space
+
+    families = make_space().type_names
+    if len(families) != 7:
+        fail(f"session: the space has families {families}, expected the seven built-ins")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = quickstart.run(dataset=ds, device=device, **SESSION)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    total_s = time.perf_counter() - t0
+    for r in quickstart.rounds(out):
+        print(f"  #{r['iteration']:2d} {r['index_type']:9s} recommend_s={r['recommend_s']:.4f} "
+              f"eval_s={r['eval_s']:.4f} qps={r['speed']:.1f} recall={r['recall']:.4f}"
+              f"{' FAILED' if r['failed'] else ''}", flush=True)
+    totals = out["ledger"]["totals"]
+    print(f"  session {out['session_s']:.1f} s (recommend {totals['recommend_s']:.2f} s, eval "
+          f"{totals['eval_s']:.2f} s); with the interrupted and resumed runs {total_s:.1f} s; "
+          f"abandoned {out['abandoned']}; launches {launches}")
+    print("  Pareto front (qps, recall): " + ", ".join(f"({s:.1f}, {r:.4f})"
+                                                       for s, r in out["front"]))
+    for f in out["failures"]:
+        print(f"  failed evaluation: {f['config']}: {f['error']}")
+    bad = [f for f in out["failures"] if not any(a in f["error"] for a in FAILURES_ALLOWED)]
+    if bad:
+        fail(f"session: {len(bad)} evaluations failed for other reasons: {bad}")
+    if len(out["history"]) != SESSION["n_iters"]:
+        fail(f"session: {len(out['history'])} observations, expected {SESSION['n_iters']}")
+    if not out["resumed_identical"]:
+        fail("session: the run restored from its JSON checkpoint diverged from the "
+             "uninterrupted one")
+    print(f"  resumed from {out['interrupted_at']} observations ({out['checkpoint_bytes']} bytes "
+          f"of JSON): identical to the uninterrupted run", flush=True)
+    # the GP-driven configurations (the defaults were held in phase 3): each
+    # kernel at the shapes such a configuration gave it, against its plain version
+    held = []
+    for cfg, _y, failed in out["history"][len(make_space().type_names):]:
+        case = None if failed else config_case(ds, cfg, device)
+        if case is None:
+            continue
+        got, want = case["call"](None), case["call"]("torch")
+        torch.cuda.synchronize()
+        err = case["check"](got, want)
+        held.append(dict(kernel=case["name"], shape=case["shape"], max_abs_err=err))
+        print(f"  held {case['name']} at {case['shape']}: max abs err {err:.3e}", flush=True)
+        del case, got, want
+    torch.cuda.empty_cache()
+    if not held:
+        fail("session: no GP-driven configuration ran a kernel to hold against its plain version")
+    return dict(rounds=quickstart.rounds(out), front=out["front"], failures=out["failures"],
+                totals=totals, session_s=out["session_s"], total_s=total_s, launches=launches,
+                held=held)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
 
@@ -362,9 +552,11 @@ def main() -> int:
     space = make_space()
 
     # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     print("[3] kernels against plain versions", flush=True)
     rows = kernel_checks(ds, space, device)
     rows["flash_attention"] = flash_check(device)
+    print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. the evaluation path
     print("[4] VDMSTuningEnv(mode='wall') over the seven defaults", flush=True)
@@ -394,15 +586,49 @@ def main() -> int:
     for name in ("distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk"):
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the evaluation path")
-    del env, ds
+    del env
     gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 5. the serving path
-    print("[5] serve glm4-9b (40 layers) batch 4 x 2048 + 32", flush=True)
+    # 5. the kernel benchmark
+    t0 = time.perf_counter()
+    print("[5] kernel benchmark: kernel section, pipeline section at full size", flush=True)
+    bench = bench_phase(ds, device)
+    launches["pq_adc"] = bench["kernel_launches"]["pq_adc"]
+    if launches["pq_adc"] == 0:
+        fail("kernel pq_adc was not launched by the kernel benchmark")
+    r = bench["kernels"]["pq_adc"]  # pq_adc's own path: the benchmark's row
+    rows["pq_adc"] = dict(replaces="src/repro/kernels/pq_adc.py:60",
+                          source="src/repro_torch/kernels/csrc/pq_adc.cu",
+                          max_abs_err=r["max_abs_err"], ms=r["cuda_ms"], plain_ms=r["plain_ms"],
+                          library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 6. the tuning loop
+    t0 = time.perf_counter()
+    print(f"[6] VDTuner session (quickstart) on the same data, {SESSION['n_iters']} "
+          f"observations, interrupted at {SESSION['interrupt_at']}", flush=True)
+    session = session_phase(ds, device)
+    for name in ("distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk"):
+        if session["launches"][name] == 0:  # the seven defaults are the first rounds
+            fail(f"session: kernel {name} was not launched")
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 7. the serving path
+    t0 = time.perf_counter()
+    print("[7] serve glm4-9b (40 layers) batch 4 x 2048 + 32", flush=True)
     serve = serve_phase(device)
     launches["flash_attention"] = serve["launches"]["flash_attention"]
+    print(f"  phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 6. results
+    # 8. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -410,8 +636,8 @@ def main() -> int:
              library_ms=r["library_ms"])
         for name, r in rows.items()
     ]
-    print(json.dumps({"seven_defaults": results, "serve": serve, "card": card,
-                      "total_s": time.perf_counter() - t_all}))
+    print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
+                      "serve": serve, "card": card, "total_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

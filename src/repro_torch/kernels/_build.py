@@ -19,7 +19,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("distance", "fused_scan", "fused_adc", "flash_attention")
+KERNEL_SOURCES = ("distance", "fused_scan", "fused_adc", "pq_adc", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -27,6 +27,14 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+class KernelContractError(RuntimeError):
+    """A CUDA wrapper was given inputs its kernel does not take (device,
+    dtype, shape, contiguity, a size the kernel cannot hold). It is not a
+    ``ValueError`` on purpose: the tuning environment scores a ``ValueError``
+    as a bad configuration, while a broken kernel contract is a fault of the
+    program and must end the run."""
 
 
 def build_dir() -> Path:

@@ -58,14 +58,17 @@ def distance_cuda(queries: torch.Tensor, database: torch.Tensor, kind: str = "ip
     flat = database.dim() == 2
     x = database.unsqueeze(0) if flat else database
     if queries.device.type != "cuda" or x.device != queries.device:
-        raise ValueError("distance_cuda needs queries and database on one CUDA device")
+        raise _build.KernelContractError(
+            "distance_cuda needs queries and database on one CUDA device")
     if queries.dtype != torch.float32 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dtypes: queries f32, database f32/bf16; got {queries.dtype}, {x.dtype}")
+        raise _build.KernelContractError(
+            f"dtypes: queries f32, database f32/bf16; got {queries.dtype}, {x.dtype}")
     if queries.dim() != 2 or x.dim() != 3 or x.shape[2] != queries.shape[1]:
-        raise ValueError(f"shapes: queries (q, d), database (n_seg, S, d); got "
-                         f"{tuple(queries.shape)}, {tuple(database.shape)}")
+        raise _build.KernelContractError(
+            f"shapes: queries (q, d), database (n_seg, S, d); got "
+            f"{tuple(queries.shape)}, {tuple(database.shape)}")
     if not (queries.is_contiguous() and x.is_contiguous()):
-        raise ValueError("distance_cuda needs contiguous inputs")
+        raise _build.KernelContractError("distance_cuda needs contiguous inputs")
     b, d = queries.shape
     n_seg, s, _ = x.shape
     out = torch.empty((n_seg, b, s), dtype=torch.float32, device=queries.device)

@@ -97,16 +97,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, dh = q.shape
     _, sk, hkv, _ = k.shape
     if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda supports head dims {HEAD_DIMS}, got {dh}")
+        raise _build.KernelContractError(
+            f"flash_attention_cuda supports head dims {HEAD_DIMS}, got {dh}")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_cuda needs q, k and v on one CUDA device")
+        raise _build.KernelContractError(
+            "flash_attention_cuda needs q, k and v on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes: q, k, v all f32 or all bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise _build.KernelContractError(
+            f"dtypes: q, k, v all f32 or all bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda: {name} needs a contiguous head dim, 16-byte "
-                             f"aligned data and strides in multiples of {vec}; got {t.stride()}")
+            raise _build.KernelContractError(
+                f"flash_attention_cuda: {name} needs a contiguous head dim, 16-byte aligned "
+                f"data and strides in multiples of {vec}; got {t.stride()}")
     out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
     if out.numel():
         lib = _lib()

@@ -77,10 +77,11 @@ def fused_ivf_pq_topk_cuda(q, lut, codes, centroids, members, gids, *, nprobe: i
     check_ivf_inputs("fused_ivf_pq_topk", q, centroids, members, gids, codes, torch.uint8, m)
     if (lut.dtype != torch.float32 or lut.shape[0] != q.shape[0] or lut.device != q.device
             or not lut.is_contiguous()):
-        raise ValueError("fused_ivf_pq_topk: lut must be contiguous (B, m, c) f32 on the "
-                         "queries' device")
+        raise _build.KernelContractError(
+            "fused_ivf_pq_topk: lut must be contiguous (B, m, c) f32 on the queries' device")
     if c > 256:
-        raise ValueError(f"fused_ivf_pq_topk: uint8 codes address at most 256 codewords, c={c}")
+        raise _build.KernelContractError(
+            f"fused_ivf_pq_topk: uint8 codes address at most 256 codewords, c={c}")
     d = q.shape[1]
     n_seg, s, _ = codes.shape
     _, nlist, cap = members.shape

@@ -109,25 +109,27 @@ def _lib():
 
 def check_ivf_inputs(name, q, centroids, members, gids, codes, code_dtype, code_width):
     """Device, dtype, shape and contiguity checks shared by both fused
-    wrappers; raises ValueError on anything the kernels do not take."""
+    wrappers; raises :class:`~._build.KernelContractError` on anything the
+    kernels do not take."""
     dev = q.device
     tensors = dict(q=q, centroids=centroids, members=members, gids=gids, codes=codes)
     if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
-        raise ValueError(f"{name} needs every input on one CUDA device")
+        raise _build.KernelContractError(f"{name} needs every input on one CUDA device")
     want = dict(q=torch.float32, centroids=torch.float32, members=torch.int32,
                 gids=torch.int32, codes=code_dtype)
     for key, t in tensors.items():
         if t.dtype != want[key]:
-            raise ValueError(f"{name}: {key} must be {want[key]}, got {t.dtype}")
+            raise _build.KernelContractError(
+                f"{name}: {key} must be {want[key]}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+            raise _build.KernelContractError(f"{name}: {key} must be contiguous")
     b, d = q.shape
     n_seg, s, w = codes.shape
     nlist = centroids.shape[1]
     if (centroids.shape != (n_seg, nlist, d) or members.dim() != 3
             or members.shape[:2] != (n_seg, nlist) or gids.shape != (n_seg, s)
             or w != code_width):
-        raise ValueError(
+        raise _build.KernelContractError(
             f"{name}: inconsistent shapes q {tuple(q.shape)}, codes {tuple(codes.shape)}, "
             f"centroids {tuple(centroids.shape)}, members {tuple(members.shape)}, "
             f"gids {tuple(gids.shape)}")
@@ -140,8 +142,8 @@ def fused_ivf_sq8_topk_cuda(q, codes, scale, centroids, members, gids, *, nprobe
                      q.shape[1])
     if (scale.dtype != torch.float32 or scale.shape != (q.shape[1],)
             or scale.device != q.device or not scale.is_contiguous()):
-        raise ValueError("fused_ivf_sq8_topk: scale must be contiguous (d,) f32 on the "
-                         "queries' device")
+        raise _build.KernelContractError(
+            "fused_ivf_sq8_topk: scale must be contiguous (d,) f32 on the queries' device")
     b, d = q.shape
     n_seg, s, _ = codes.shape
     _, nlist, cap = members.shape

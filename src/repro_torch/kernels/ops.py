@@ -21,11 +21,12 @@ from .distance import distance_cuda, distance_torch
 from .flash_attention import flash_attention_cuda, flash_attention_torch
 from .fused_adc import fused_ivf_pq_topk_cuda, fused_ivf_pq_topk_torch
 from .fused_scan import fused_ivf_sq8_topk_cuda, fused_ivf_sq8_topk_torch
+from .pq_adc import pq_adc_cuda, pq_adc_torch
 from .ref import topk_by_score, topk_stable
 
 __all__ = [
     "KERNELS", "batched_ip", "flash_attention", "fused_ivf_pq_topk", "fused_ivf_sq8_topk", "l2_distance",
-    "launch_counts", "reset_launch_counts", "topk_by_score", "topk_stable",
+    "launch_counts", "pq_adc", "reset_launch_counts", "topk_by_score", "topk_stable",
 ]
 
 #: kernel name -> CUDA wrapper (the holder of the launch count)
@@ -33,6 +34,7 @@ KERNELS = {
     "distance": distance_cuda,
     "fused_ivf_sq8_topk": fused_ivf_sq8_topk_cuda,
     "fused_ivf_pq_topk": fused_ivf_pq_topk_cuda,
+    "pq_adc": pq_adc_cuda,
     "flash_attention": flash_attention_cuda,
 }
 
@@ -68,6 +70,13 @@ def l2_distance(queries, database, impl: Optional[str] = None):
     """Squared L2 ``|q|^2 - 2 q.x + |x|^2``, shapes as :func:`batched_ip`."""
     fn = distance_cuda if _use_kernel(impl, queries) else distance_torch
     return fn(queries, database, "l2")
+
+
+def pq_adc(lut, codes, impl: Optional[str] = None):
+    """PQ asymmetric distances: lut (q, m, c) f32, codes (n, m) integer in
+    [0, c) -> (q, n) f32, ``sum_m lut[q, m, codes[n, m]]``."""
+    fn = pq_adc_cuda if _use_kernel(impl, lut) else pq_adc_torch
+    return fn(lut, codes)
 
 
 def fused_ivf_sq8_topk(q, codes, scale, centroids, members, gids, *, nprobe: int, k: int,

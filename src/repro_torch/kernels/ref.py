@@ -5,7 +5,8 @@ The plain version of each kernel lives beside its CUDA wrapper
 and ``chip_smoke.py`` compares the kernel with it on the card. This module
 holds what they and the search paths share: the stable top-k with
 ``lax.top_k``'s tie rule, the merge primitive built on it, segment blocking
-for batched gathers, and the ordered ADC sum.
+for batched gathers, the ordered ADC sum, and the plain version of the
+unfused ADC scan ``pq_adc``.
 """
 from __future__ import annotations
 
@@ -47,3 +48,18 @@ def adc_sum(gathered: torch.Tensor) -> torch.Tensor:
     for j in range(1, gathered.shape[-1]):
         acc = acc + gathered[..., j]
     return acc
+
+
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """PQ asymmetric distance computation, the plain version of the
+    ``pq_adc`` kernel: lut (q, m, c), codes (n, m) integer in [0, c) ->
+    (q, n), ``out[q, n] = sum_m lut[q, m, codes[n, m]]`` summed in order
+    m = 0 .. m-1. Works in blocks of code rows whose gathered (q, rows, m)
+    terms hold at most about 2**26 elements."""
+    q, m, c = lut.shape
+    flat = lut.reshape(q, m * c)
+    offs = torch.arange(m, device=lut.device) * c
+    out = torch.empty((q, codes.shape[0]), dtype=lut.dtype, device=lut.device)
+    for blk in segment_blocks(codes.shape[0], q * m, 1 << 26):
+        out[:, blk] = adc_sum(flat[:, codes[blk].long() + offs])  # (q, rows, m) -> (q, rows)
+    return out

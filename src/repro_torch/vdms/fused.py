@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import segment_blocks, topk_stable
 from .merge import merge_topk
 
 
@@ -71,3 +72,32 @@ def fused_search_ivf_pq(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=
 
 
 fused_search_ivf_pq.stages = "probe → PQ ADC scan → top-k"
+
+
+def fused_search_ivf_pqr(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False, nprobe,
+                         m, c, reorder_k):
+    """IVF_PQR: fused PQ candidate scan at width ``reorder_k`` (never
+    clamped: dead slots consume reorder width exactly as composed) -> exact
+    re-rank against the raw vectors -> clamped per-segment top-k."""
+    k_eff = min(k_seg, topk) if clamp else k_seg
+    lids, _ = ops.fused_ivf_pq_topk(
+        q, pq_lut(q, arrays["codebooks"]), arrays["codes"], arrays["centroids"],
+        arrays["members"], arrays["gids"], nprobe=nprobe, k=reorder_k, mask_dead=False,
+    )  # (n_seg, B, r): the PQ stage only ranks; its scores are discarded
+    data = arrays["data"]
+    exact = torch.empty(lids.shape, dtype=torch.float32, device=q.device)
+    for blk in segment_blocks(lids.shape[0], lids.shape[1] * lids.shape[2] * q.shape[1]):
+        lz = lids[blk]
+        z = torch.arange(lz.shape[0], device=q.device)[:, None, None]
+        vecs = data[blk][z, lz.clamp_min(0).long()].float()  # (z, B, r, d)
+        exact[blk] = torch.einsum("zbrd,bd->zbr", vecs, q).masked_fill(lz < 0, float("-inf"))
+    kk = min(k_eff, exact.shape[-1])
+    top_s, top_i = topk_stable(exact, kk)
+    lids2 = torch.gather(lids, 2, top_i)
+    if kk < k_eff:
+        lids2 = torch.nn.functional.pad(lids2, (0, k_eff - kk), value=-1)
+        top_s = torch.nn.functional.pad(top_s, (0, k_eff - kk), value=float("-inf"))
+    return _finish(lids2, top_s, arrays["gids"], q, growing, growing_gids, topk)
+
+
+fused_search_ivf_pqr.stages = "probe → PQ ADC scan → exact re-rank → top-k"

@@ -102,6 +102,12 @@ class IndexFamilyRegistry:
         self._families[family.name] = family
         return family
 
+    def unregister(self, name: str) -> IndexFamily:
+        """Remove a registered family (undoes :meth:`register`)."""
+        family = self.get(name)
+        del self._families[name]
+        return family
+
     def get(self, name: str) -> IndexFamily:
         try:
             return self._families[name]

@@ -112,3 +112,68 @@ def test_flash_attention_kernel_strides_and_masked_rows(dev, dtype):
     assert not bool(got[:, :60].any())
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=ATTN_TOL[dtype], rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# pq_adc: the same summing order as the plain version, so exact
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("q,n,m,c", [(13, 1000, 5, 256), (128, 8192, 8, 256), (9, 700, 8, 16),
+                                     (20, 333, 1, 64), (17, 2049, 32, 256)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8], ids=["int32", "uint8"])
+def test_pq_adc_kernel(dev, q, n, m, c, dtype):
+    g = torch.Generator(device=dev).manual_seed(q * n)
+    lut = torch.randn(q, m, c, generator=g, device=dev)
+    codes = torch.randint(0, c, (n, m), generator=g, device=dev).to(dtype)
+    before = ops.launch_counts()["pq_adc"]
+    got = ops.pq_adc(lut, codes)
+    assert ops.launch_counts()["pq_adc"] == before + 1
+    torch.testing.assert_close(got, ops.pq_adc(lut, codes, impl="torch"), rtol=0, atol=0)
+
+
+def test_pq_adc_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels._build import KernelContractError
+
+    lut = torch.randn(4, 2, 16, device=dev)
+    with pytest.raises(KernelContractError, match="outside"):
+        ops.pq_adc(lut, torch.full((5, 2), 16, dtype=torch.int32, device=dev))
+    with pytest.raises(KernelContractError, match="256"):
+        ops.pq_adc(torch.randn(4, 2, 300, device=dev), torch.zeros(5, 2, dtype=torch.int32,
+                                                                   device=dev))
+
+
+def test_fused_pq_kernel_k_beyond_candidates(dev):
+    """IVF_PQR's reorder width can exceed a query's live candidates: the
+    kernel fills the slots beyond them with -1 / -inf, as the plain version."""
+    q, x, cents, members, gids = _inputs(dev, cap=40)
+    g = torch.Generator(device=dev).manual_seed(2)
+    lut = torch.randn(q.shape[0], 5, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (3, 700, 5), generator=g, device=dev).to(torch.uint8)
+    args = (q, lut, codes, cents, members, gids)
+    got = ops.fused_ivf_pq_topk(*args, nprobe=2, k=512, mask_dead=False)
+    want = ops.fused_ivf_pq_topk(*args, nprobe=2, k=512, mask_dead=False, impl="torch")
+    assert bool((got[0][..., 80:] == -1).all()) and bool(torch.isinf(got[1][..., 80:]).all())
+    assert_topk_match(*(t.cpu() for t in got), *(t.cpu() for t in want))
+
+
+def test_ivf_pqr_fused_matches_composed_on_card(dev):
+    from repro_torch.vdms import VDMSInstance, make_dataset, set_search_pipeline
+    from repro_torch.vdms.ivf_pqr import register
+    from repro_torch.vdms.registry import REGISTRY
+
+    register()
+    try:
+        ds = make_dataset("glove_like", n=3000, n_queries=32, k=10, seed=0, dim=64, device=dev)
+        cfg = dict(index_type="IVF_PQR", nlist=16, nprobe=1, m=8, nbits=8, reorder_k=512,
+                   segment_max_size=1024, seal_proportion=0.75, graceful_time=0.2,
+                   search_batch_size=16, topk_merge_width=64, kmeans_iters=4,
+                   storage_bf16=False)
+        inst = VDMSInstance(ds, cfg, device=dev)
+        out = {}
+        for mode in ("composed", "fused"):
+            set_search_pipeline(mode)
+            out[mode] = inst.search(ds.queries, 10)
+        set_search_pipeline("fused")
+        for a, b in zip(out["composed"], out["fused"]):
+            assert set(a[a >= 0]) == set(b[b >= 0])
+    finally:
+        REGISTRY.unregister("IVF_PQR")

@@ -12,6 +12,7 @@ import torch
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops
+from repro_torch.kernels._build import KernelContractError
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_torch
 
 # tests/test_kernels.py's FA_CASES: (b, sq, sk, hq, hkv, dh, causal, window)
@@ -107,10 +108,10 @@ def test_flash_dispatch_on_the_cpu():
     torch.testing.assert_close(ops.flash_attention(q, k, v), flash_attention_torch(q, k, v),
                                rtol=0, atol=0)
     assert ops.launch_counts()["flash_attention"] == before
-    with pytest.raises(ValueError, match="CUDA device"):
+    with pytest.raises(KernelContractError, match="CUDA device"):
         flash_attention_cuda(q, k, v)
     q48, k48, v48 = (torch.from_numpy(a) for a in _qkv(16, 1, 8, 8, 2, 1, 48))
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(KernelContractError, match="head dims"):
         flash_attention_cuda(q48, k48, v48)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, v, window=0)

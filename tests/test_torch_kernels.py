@@ -136,4 +136,4 @@ def test_dispatch_cpu_uses_plain_version():
     with pytest.raises(ValueError, match="unknown impl"):
         ops.batched_ip(q, x, impl="triton")
     assert set(ops.launch_counts()) == {"distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk",
-                                        "flash_attention"}
+                                        "pq_adc", "flash_attention"}

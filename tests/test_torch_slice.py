@@ -67,3 +67,21 @@ def test_entry_points_need_a_device_without_gpu():
         VDMSTuningEnv(port_dataset())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VDMSInstance(port_dataset(), default_config("FLAT"))
+
+
+def test_kernel_contract_error_ends_an_evaluation(monkeypatch):
+    """A kernel wrapper refusing its inputs is a fault of the program, not a
+    bad configuration: it propagates out of the environment (a ValueError
+    would have been scored as a TuningFailure)."""
+    from repro_torch.kernels._build import KernelContractError
+    from repro_torch.kernels.fused_scan import fused_ivf_sq8_topk_cuda
+    from repro_torch.vdms import fused
+
+    def kernel_on_host_tensors(q, codes, scale, centroids, members, gids, **kw):
+        return fused_ivf_sq8_topk_cuda(q, codes, scale, centroids, members, gids, **kw)
+
+    monkeypatch.setattr(fused.ops, "fused_ivf_sq8_topk", kernel_on_host_tensors)
+    env = VDMSTuningEnv(port_dataset(), mode="analytic", device="cpu")
+    with pytest.raises(KernelContractError, match="CUDA device"):
+        env(default_config("IVF_SQ8"))
+    assert not env.cache
