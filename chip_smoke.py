@@ -6,14 +6,18 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); matmul precision pinned;
   2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc,
-     one process per source, all at once;
+     one process per source, all at once, with each kernel's registers and
+     spills; when the parent commit's kernel sources are unpacked under
+     ``build/parent``, its ``distance`` and ``flash_attention`` beside them;
   3. each kernel held against its plain PyTorch version on the card, at the
      shapes its path gives it (glove-100-angular size, the defaults of FLAT,
      IVF_SQ8 and IVF_PQ; ``pq_adc`` at 1,024 queries x 32 IVF_PQ segments of
      codes; glm4-9b prefill attention at batch 4 x 2048), and timed with
      CUDA events beside the plain version, a library call where one exists,
      and its bound (bytes over 3.35 TB/s or operations over the peak of
-     their type, the H100 SXM data-sheet figures);
+     their type, the H100 SXM data-sheet figures); the parent's two kernels,
+     when built, held against the same plain versions and timed in turns
+     with the new ones (new, old, old, new);
   4. the evaluation path: ``VDMSTuningEnv(dataset, mode="wall")`` over the
      defaults of all seven index families in the session's order, with the
      kernels' launch counters reset just before and read just after;
@@ -123,6 +127,25 @@ def check_topk(name, got, want):
     return err
 
 
+def ptxas_report(log: str):
+    """(kernel, registers, spills) for each function in an ``nvcc -Xptxas -v``
+    log, the kernel named by its template instance."""
+    import re
+
+    rows, fn, spills = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split(" for ", 1)[1].strip()
+            m = re.search(r"_cu_[0-9a-f]{8}\d+(.*?)EEv", fn)
+            fn = m.group(1) if m else fn
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            rows.append((fn, line.split("Used", 1)[1].split(",")[0].strip(), spills))
+            fn = None
+    return rows
+
+
 def config_case(ds, cfg, device):
     """The kernel that ``cfg``'s search launches (FLAT: distance, one call
     per query chunk; IVF_SQ8 / IVF_PQ: their fused kernels, one call over
@@ -190,9 +213,10 @@ def config_case(ds, cfg, device):
                 shape=shape, args=args, m=st.get("m"))
 
 
-def kernel_checks(ds, space, device):
+def kernel_checks(ds, space, device, parent=None):
     """Phase 3: each kernel against its plain version at the main path's
-    shapes, on the data of the seven defaults' kernel-backed families."""
+    shapes, on the data of the seven defaults' kernel-backed families; with
+    the parent's kernels, FLAT's distance timed beside the parent's."""
     import torch
 
     from repro_torch.kernels import ops
@@ -203,6 +227,12 @@ def kernel_checks(ds, space, device):
         got, want = case["call"](None), case["call"]("torch")
         torch.cuda.synchronize()
         err = case["check"](got, want)
+        old = None
+        if fam == "FLAT" and parent:
+            q, data = case["q"], case["data"]
+            old = old_against_new("distance", lambda: ops.batched_ip(q, data),
+                                  lambda: parent_distance(parent["distance"], q, data), want, TOL,
+                                  20)
         del got, want
         if fam == "FLAT":  # the other epilogue and the bf16 storage
             q, data = case["q"], case["data"]
@@ -220,7 +250,7 @@ def kernel_checks(ds, space, device):
             ms=cuda_ms(lambda: call(None), n_ms),
             plain_ms=cuda_ms(lambda: call("torch"), n_plain, warmup=plain_warmup),
             library_ms=cuda_ms(case["library"], 20) if case["library"] else None,
-            bound_ms=bms, bound_by=by, shape=case["shape"])
+            bound_ms=bms, bound_by=by, shape=case["shape"], old_against_new=old)
         if fam == "IVF_PQ":  # pq_adc at the evaluation path's scale: these queries'
             # tables against the codes of the first 32 segments
             lut, codes = case["args"][1], case["args"][2]
@@ -273,6 +303,96 @@ def pq_adc_check(lut, codes):
     del onehot, got, want
 
 
+# The parent commit's versions of the kernels this slice redesigned, built
+# from its sources when they are unpacked under the git-ignored build/parent
+# (``git archive <parent> src/repro_torch/kernels/csrc | tar -x -C build/parent``),
+# so that old and new are timed on one card in one call.
+PARENT_SRC = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" / "csrc"
+PARENT_KERNELS = ("distance", "flash_attention")
+
+
+def start_parent_build():
+    """Start one nvcc per parent kernel (beside phase 2's builds); None when
+    the parent's sources are not unpacked."""
+    from repro_torch.kernels import _build
+
+    if not all((PARENT_SRC / f"{n}.cu").exists() for n in PARENT_KERNELS):
+        print("  parent kernels: build/parent not unpacked; old-against-new timing skipped")
+        return None
+    out = ROOT / "build" / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    return {n: (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(PARENT_SRC), "-o",
+                                  str(out / f"{n}.so"), str(PARENT_SRC / f"{n}.cu")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                out / f"{n}.so")
+            for n in PARENT_KERNELS}
+
+
+def finish_parent_build(procs):
+    """Wait for the parent builds; returns name -> loaded library, or None."""
+    import ctypes
+
+    from repro_torch.kernels import distance as dmod, flash_attention as fmod
+
+    if procs is None:
+        return None
+    libs = {}
+    for n, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"parent {n}: nvcc exited {proc.returncode}\n{log}")
+        libs[n] = ctypes.CDLL(str(so))
+    for fn, sig in ((libs["distance"].distance_f32, dmod._SIG),
+                    (libs["flash_attention"].flash_attention_bf16, fmod._SIG)):
+        fn.argtypes, fn.restype = sig, ctypes.c_int
+    return libs
+
+
+def parent_distance(lib, q, x):
+    """The parent's distance kernel, inner product, f32 database."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = torch.empty((x.shape[0], q.shape[0], x.shape[1]), dtype=torch.float32, device=q.device)
+    _build.check(lib.distance_f32(q.data_ptr(), x.data_ptr(), out.data_ptr(), q.shape[0],
+                                  x.shape[0], x.shape[1], x.shape[2], 0,
+                                  torch.cuda.current_stream().cuda_stream), "parent distance")
+    return out
+
+
+def parent_flash(lib, q, k, v):
+    """The parent's flash kernel, bf16, causal."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out = torch.empty_like(q)
+    b, sq, hq, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    _build.check(lib.flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                          b, sq, sk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3],
+                                          *v.stride()[:3], 1, 0,
+                                          torch.cuda.current_stream().cuda_stream),
+                 "parent flash_attention")
+    return out
+
+
+def old_against_new(name, new, old, want, tol, n):
+    """The parent's kernel held against the plain version like the new one,
+    then both timed in turns (new, old, old, new). Returns the times."""
+    import torch
+
+    err = float((old().float() - want.float()).abs().max())
+    torch.cuda.synchronize()
+    if not err <= tol:
+        fail(f"parent {name}: max abs difference {err} > {tol}")
+    t = [cuda_ms(f, n) for f in (new, old, old, new)]
+    print(f"  {name}: new {t[0]:.4f} / {t[3]:.4f} ms, parent {t[1]:.4f} / {t[2]:.4f} ms "
+          f"(parent max abs err {err:.3e})", flush=True)
+    return dict(new_ms=[t[0], t[3]], parent_ms=[t[1], t[2]], parent_max_abs_err=err)
+
+
 # glm4-9b's prefill attention at the serving phase's shape: batch 4, 2048
 # tokens, 32 query heads over 2 kv heads, head dim 128, causal
 FLASH_SHAPE = (4, 2048, 32, 2, 128)
@@ -283,9 +403,10 @@ SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_TOL = 5e-2  # relative L2 of the bf16 last-token logits
 
 
-def flash_check(device):
+def flash_check(device, parent=None):
     """Phase 3, flash attention: the kernel against its plain version at
-    glm4-9b's prefill shape, in f32 and in bf16 (the serving dtype)."""
+    glm4-9b's prefill shape, in f32 and in bf16 (the serving dtype); with the
+    parent's kernels, the bf16 kernel timed beside the parent's."""
     import torch
     import torch.nn.functional as F
 
@@ -306,7 +427,13 @@ def flash_check(device):
         if not errs[name] <= FLASH_TOL[name]:
             fail(f"flash_attention {name}: max abs difference {errs[name]} > {FLASH_TOL[name]}")
         times[name] = cuda_ms(lambda: ops.flash_attention(q, k, v), 5)
-        del got, want
+        del got
+    old = None
+    if parent:  # q, k, v and want are the bf16 ones
+        old = old_against_new("flash_attention", lambda: ops.flash_attention(q, k, v),
+                              lambda: parent_flash(parent["flash_attention"], q, k, v), want,
+                              FLASH_TOL["bf16"], 10)
+    del want
     # the bf16 inputs: the plain version and the library call beside the kernel
     plain_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, impl="torch"), 3, warmup=1)
     torch.cuda.empty_cache()
@@ -320,7 +447,8 @@ def flash_check(device):
     row = dict(replaces="src/repro/kernels/flash_attention.py:88",
                source="src/repro_torch/kernels/csrc/flash_attention.cu", max_abs_err=errs["bf16"],
                ms=times["bf16"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-               bound_by=by, shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal")
+               bound_by=by, shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+               old_against_new=old)
     print(f"  flash_attention f32: kernel {times['f32']:.4f} ms, max abs err {errs['f32']:.3e}; "
           f"f32 CUDA-core bound {flops / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms "
           f"({flops / 1e9:.1f} GFLOP); SDPA (kv heads expanded) vs kernel max abs diff "
@@ -532,16 +660,19 @@ def main() -> int:
     pin_matmul_precision()
     device = torch.device("cuda")
 
-    # 2. build
+    # 2. build (the parent's redesigned kernels beside, when unpacked)
     t0 = time.perf_counter()
+    parent_procs = start_parent_build()
     _build.build_all()
+    parent = finish_parent_build(parent_procs)
     print(f"[2] built {', '.join(_build.KERNEL_SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in _build.KERNEL_SOURCES:
-        log = (_build.build_dir() / f"{name}.ptxas.txt").read_text()
-        for line in log.splitlines():
-            if "registers" in line:
-                print(f"  {name}: {line.split(':', 1)[1].strip()}")
+        for fn, regs, spills in ptxas_report((_build.build_dir() / f"{name}.ptxas.txt").read_text()):
+            print(f"  {name}: {fn}: {regs}; {spills}")
+    print(f"  dynamic shared memory per block: flash bf16 (dh 128) "
+          f"{_build.load('flash_attention').flash_attention_bf16_smem(128)} B; distance at "
+          f"B = 32, f32: {_build.load('distance').distance_smem(32)} B", flush=True)
 
     # the data: glove-100-angular's shape, generated from the seed
     t0 = time.perf_counter()
@@ -554,8 +685,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     print("[3] kernels against plain versions", flush=True)
-    rows = kernel_checks(ds, space, device)
-    rows["flash_attention"] = flash_check(device)
+    rows = kernel_checks(ds, space, device, parent)
+    rows["flash_attention"] = flash_check(device, parent)
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. the evaluation path

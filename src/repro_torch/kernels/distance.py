@@ -10,12 +10,15 @@ Bound on the H100: bytes. A chunk of 32 queries against 289 segments of 4096
 x 100 f32 moves 473 MB of database and writes 151 MB of scores, while its
 7.6 GFLOP need a tenth of a millisecond at the 67 TFLOP/s f32 rate; the
 arithmetic intensity (about 12 FLOP per byte) is far under the card's ridge.
-Design: a chunk of at most 32 queries is one 32-row tile (64 rows for larger
-chunks), so each database row is read from device memory once per chunk and
-each score is written once; f32 FMAs (no TF32) keep the JAX package's f32
-contraction; bf16 storage is widened to f32 as it is loaded, which halves
-the bytes that bound the kernel. The L2 norms are summed from the same
-shared-memory tiles as the product, so the epilogue costs no second pass.
+Design: persistent blocks walk (segment, column tile) work, each tile cut
+along d into chunks that stream, with the queries' chunk, through a
+two-stage ``cp.async`` ring, so loads run under the FMAs; each thread holds
+an 8 x 8 register tile fed by float4 shared loads. f32 FMAs (no TF32) keep
+the JAX package's f32 contraction; bf16 storage is staged as bf16 and
+widened as it is read, which halves the bytes that bound the kernel. Any d
+and any number of queries are taken (rows need not be 16-byte aligned). The
+L2 norms are summed from the same registers as the product, so the epilogue
+costs no second pass.
 """
 from __future__ import annotations
 

@@ -23,11 +23,14 @@ bf16, causal): operations. The visible half of the score matrix is about
 137 GFLOP of products (two per score and head dim, for Q.K and P.V), 0.14 ms
 at the bf16 tensor-core peak and 2.05 ms at the 67 TFLOP/s f32 rate, while
 the 143 MB of q, k, v and output take 0.04 ms. So bf16 inputs go to the
-tensor cores (``mma.sync`` m16n8k16, f32 accumulation; P split into bf16
-hi + lo parts for P.V, which keeps it to about 16 bits where the TPU kernel
-keeps f32), and f32 inputs to the f32 CUDA cores (P in f32). Both skip fully
-masked key tiles without loading them (half the tiles at causal prefill).
-``wgmma``, TMA and load pipelining are later work.
+tensor cores: TMA brings K and V tiles into a four-stage ring, loaded once
+for up to four query heads that share a kv head, and two consumer
+warpgroups run ``wgmma`` (Q.K^T from shared memory, the next tile's issued
+under this tile's softmax; P.V with P from registers, rounded once to bf16
+where the TPU kernel keeps f32: P lies in [0, 1] and the row sums stay f32,
+which keeps the output within one bf16 rounding of the plain version).
+f32 inputs go to the f32 CUDA cores (P in f32). Both skip fully masked key
+tiles without loading them (half the tiles at causal prefill).
 """
 from __future__ import annotations
 

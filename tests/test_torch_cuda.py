@@ -53,6 +53,47 @@ def test_distance_kernel(dev, kind, bf16):
                                    atol=TOL, rtol=0)
 
 
+def _unit_rows(dev, shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.nn.functional.normalize(torch.randn(*shape, generator=g), dim=-1)
+    return x.to(dtype).to(dev)
+
+
+def _check_distance(q, x, kind):
+    fn = ops.batched_ip if kind == "ip" else ops.l2_distance
+    before = ops.launch_counts()["distance"]
+    got = fn(q, x)
+    assert ops.launch_counts()["distance"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), fn(q, x, impl="torch").cpu().numpy(),
+                               atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b", [1, 32, 33, 64, 100])
+@pytest.mark.parametrize("kind", ["ip", "l2"])
+def test_distance_kernel_ragged_tiles(dev, kind, b):
+    """S = 1000 fills no whole column tile (512 or 256 rows); B from one
+    query to more than one 64-row tile."""
+    q = _unit_rows(dev, (b, 100), torch.float32, b)
+    x = _unit_rows(dev, (3, 1000, 100), torch.float32, b + 1)
+    _check_distance(q, x, kind)
+
+
+@pytest.mark.parametrize("d,dtype", [(37, torch.float32), (96, torch.float32),
+                                     (100, torch.float32), (256, torch.float32),
+                                     (1536, torch.float32), (100, torch.bfloat16),
+                                     (37, torch.bfloat16)],
+                         ids=["37-f32", "96-f32", "100-f32", "256-f32", "1536-f32", "100-bf16",
+                              "37-bf16"])
+@pytest.mark.parametrize("kind", ["ip", "l2"])
+def test_distance_kernel_any_dim(dev, kind, d, dtype):
+    """Rows that are not 16-byte aligned (f32 at d = 37, bf16 at d = 100 and
+    37), d that is not a multiple of the 52-value chunk, and a d whose query
+    chunk would not fit in shared memory whole."""
+    q = _unit_rows(dev, (40, d), torch.float32, d)
+    x = _unit_rows(dev, (2, 777, d), dtype, d + 1)
+    _check_distance(q, x, kind)
+
+
 @pytest.mark.parametrize("k", [16, 64])
 @pytest.mark.parametrize("mask_dead", [False, True])
 def test_fused_kernels(dev, k, mask_dead):
@@ -112,6 +153,47 @@ def test_flash_attention_kernel_strides_and_masked_rows(dev, dtype):
     assert not bool(got[:, :60].any())
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=ATTN_TOL[dtype], rtol=0)
+
+
+def _check_flash(q, k, v, **kw):
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, **kw, impl="torch")
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=ATTN_TOL[q.dtype], rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
+def test_flash_attention_bf16_long_keys_wrap_the_ring(dev, mask):
+    """1,200 keys are 19 tiles of 64: the four-stage ring wraps four times;
+    the window of 300 ends inside a tile."""
+    q, k, v = _attn_inputs(dev, torch.bfloat16, 1, 200, 1200, 8, 2, 128, seed=3)
+    _check_flash(q, k, v, causal=mask != "bidirectional", window=300 if mask == "window" else None)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 2)], ids=["group1", "group4", "group16"])
+def test_flash_attention_bf16_groups_and_ragged_rows(dev, hq, hkv, dh):
+    """GQA groups of 1, 4 and 16 query heads per kv head (a block holds 4, 2
+    or 1 of them x 128 / G rows); sq = 75 fills no whole block."""
+    q, k, v = _attn_inputs(dev, torch.bfloat16, 2, 75, 75, hq, hkv, dh, seed=dh + hq)
+    _check_flash(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_bf16_strided_window_and_empty_rows(dev, dh):
+    """q, k and v as strided views of packed buffers; more queries than keys
+    (the first 50 causal rows see no key and give 0); a window of 70 whose
+    edge crosses the 64-key tiles."""
+    g = torch.Generator(device=dev).manual_seed(dh)
+    qbuf = torch.randn(2, 150, 2, 8, dh, generator=g, device=dev).to(torch.bfloat16)
+    kv = (torch.rand(2, 100, 2, 2, dh, generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    q, k, v = qbuf[:, :, 1], kv[:, :, 0], kv[:, :, 1]
+    got = _check_flash(q, k, v, causal=True, window=70)
+    assert not bool(got[:, :50].any())
 
 
 # ---------------------------------------------------------------------------
