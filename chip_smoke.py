@@ -8,16 +8,18 @@ Phases, each fatal on failure:
   2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once, with each kernel's registers and
      spills; when the parent commit's kernel sources are unpacked under
-     ``build/parent``, its ``distance`` and ``flash_attention`` beside them;
+     ``build/parent``, its two fused IVF kernels beside them;
   3. each kernel held against its plain PyTorch version on the card, at the
      shapes its path gives it (glove-100-angular size, the defaults of FLAT,
      IVF_SQ8 and IVF_PQ; ``pq_adc`` at 1,024 queries x 32 IVF_PQ segments of
      codes; glm4-9b prefill attention at batch 4 x 2048), and timed with
      CUDA events beside the plain version, a library call where one exists,
      and its bound (bytes over 3.35 TB/s or operations over the peak of
-     their type, the H100 SXM data-sheet figures); the parent's two kernels,
-     when built, held against the same plain versions and timed in turns
-     with the new ones (new, old, old, new);
+     their type, the H100 SXM data-sheet figures); the two fused kernels
+     also at two corners of the search space (segments of 8,192, nprobe 128,
+     k 128, nlist 128 and 512), and the parent's fused kernels, when built,
+     held against the same plain versions and timed in turns with the new
+     ones (new, old, old, new) at the defaults and both corners;
   4. the evaluation path: ``VDMSTuningEnv(dataset, mode="wall")`` over the
      defaults of all seven index families in the session's order, with the
      kernels' launch counters reset just before and read just after;
@@ -34,7 +36,8 @@ Phases, each fatal on failure:
      one, and no evaluation may fail except by a build timeout or device
      memory; counters reset just before and read just after; then the
      kernel of each GP-driven FLAT / IVF_SQ8 / IVF_PQ configuration held
-     against its plain version at that configuration's shapes;
+     against its plain version at that configuration's shapes, and the fused
+     ones timed there;
   7. the serving path: ``repro_torch.launch.serve.run`` on glm4-9b at full
      width and depth (40 layers, random weights from seed 0), batch 4, a
      2048-token prompt, 32 generated tokens, counters reset just before and
@@ -146,14 +149,15 @@ def ptxas_report(log: str):
     return rows
 
 
-def config_case(ds, cfg, device):
+def config_case(ds, cfg, device, k=None):
     """The kernel that ``cfg``'s search launches (FLAT: distance, one call
     per query chunk; IVF_SQ8 / IVF_PQ: their fused kernels, one call over
     every chunk), at the shapes that configuration gives it, on an instance
     built from ``ds``. Returns None for a family that launches no kernel,
     else a dict with ``call(impl)``, ``check(got, want)`` (the largest
     difference, fatal beyond the tolerance), the work (bytes, operations),
-    a shape note and the instance's arrays for further checks."""
+    a shape note and the instance's arrays for further checks. ``k``
+    overrides the width the configuration gives the fused kernels."""
     import torch
 
     from repro_torch.kernels import ops
@@ -185,7 +189,8 @@ def config_case(ds, cfg, device):
                     work=(nbytes(q, data) + n_seg * b * s * 4, 2.0 * b * n_seg * s * d),
                     shape=shape, q=q, data=data)
     qa = inst._chunked_queries(ds.queries).reshape(-1, ds.dim)
-    k = min(inst.k_seg, ds.k) if inst._clamp_ok else inst.k_seg
+    if k is None:
+        k = min(inst.k_seg, ds.k) if inst._clamp_ok else inst.k_seg
     common = dict(nprobe=st["nprobe"], k=k, mask_dead=inst._clamp_ok)
     if fam == "IVF_SQ8":
         name, src, line = "fused_ivf_sq8_topk", "fused_scan.cu", "src/repro/kernels/fused_scan.py:178"
@@ -210,13 +215,21 @@ def config_case(ds, cfg, device):
                 check=lambda got, want: check_topk(f"{name} at {shape}", got, want),
                 library=None,
                 work=(nbytes(*args) + 2 * n_seg * qa.shape[0] * k * 4, probe_flops + score_flops),
-                shape=shape, args=args, m=st.get("m"))
+                shape=shape, args=args, m=st.get("m"), common=common)
+
+
+# Corners of the search space for the fused kernels: segments of 8,192 and
+# nprobe 128 (P = 9,216 member slots a query at nlist 128), k 128
+CORNERS = [dict(segment_max_size=8192, nlist=nlist, nprobe=128, topk_merge_width=128)
+           for nlist in (128, 512)]
+CORNER_K = 128
 
 
 def kernel_checks(ds, space, device, parent=None):
     """Phase 3: each kernel against its plain version at the main path's
-    shapes, on the data of the seven defaults' kernel-backed families; with
-    the parent's kernels, FLAT's distance timed beside the parent's."""
+    shapes, on the data of the seven defaults' kernel-backed families; the
+    fused kernels also at the corners; with the parent's kernels, the fused
+    ones timed beside the parent's at the defaults and the corners."""
     import torch
 
     from repro_torch.kernels import ops
@@ -228,11 +241,8 @@ def kernel_checks(ds, space, device, parent=None):
         torch.cuda.synchronize()
         err = case["check"](got, want)
         old = None
-        if fam == "FLAT" and parent:
-            q, data = case["q"], case["data"]
-            old = old_against_new("distance", lambda: ops.batched_ip(q, data),
-                                  lambda: parent_distance(parent["distance"], q, data), want, TOL,
-                                  20)
+        if fam != "FLAT" and parent:
+            old = fused_old_against_new(case, parent, 10)
         del got, want
         if fam == "FLAT":  # the other epilogue and the bf16 storage
             q, data = case["q"], case["data"]
@@ -261,7 +271,26 @@ def kernel_checks(ds, space, device, parent=None):
         print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"max abs err {r['max_abs_err']:.3e}", flush=True)
-    return rows
+    corners = []
+    for extra in CORNERS:
+        for fam in ("IVF_SQ8", "IVF_PQ"):
+            cfg = dict(space.default_config(fam), **extra)
+            case = config_case(ds, cfg, device, k=CORNER_K)
+            got, want = case["call"](None), case["call"]("torch")
+            torch.cuda.synchronize()
+            err = case["check"](got, want)
+            del got, want
+            bms, by = bound(*case["work"])
+            old = fused_old_against_new(case, parent, 5, 1) if parent else None
+            row = dict(kernel=case["name"], shape=case["shape"], max_abs_err=err,
+                       ms=cuda_ms(lambda: case["call"](None), 5), bound_ms=bms, bound_by=by,
+                       old_against_new=old)
+            print(f"  {case['name']} corner {case['shape']}: kernel {row['ms']:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}), max abs err {err:.3e}", flush=True)
+            corners.append(row)
+            del case
+            torch.cuda.empty_cache()
+    return rows, corners
 
 
 def pq_adc_check(lut, codes):
@@ -308,7 +337,7 @@ def pq_adc_check(lut, codes):
 # (``git archive <parent> src/repro_torch/kernels/csrc | tar -x -C build/parent``),
 # so that old and new are timed on one card in one call.
 PARENT_SRC = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" / "csrc"
-PARENT_KERNELS = ("distance", "flash_attention")
+PARENT_KERNELS = ("fused_scan", "fused_adc")
 
 
 def start_parent_build():
@@ -332,7 +361,7 @@ def finish_parent_build(procs):
     """Wait for the parent builds; returns name -> loaded library, or None."""
     import ctypes
 
-    from repro_torch.kernels import distance as dmod, flash_attention as fmod
+    from repro_torch.kernels import fused_adc, fused_scan
 
     if procs is None:
         return None
@@ -342,52 +371,52 @@ def finish_parent_build(procs):
         if proc.returncode != 0:
             fail(f"parent {n}: nvcc exited {proc.returncode}\n{log}")
         libs[n] = ctypes.CDLL(str(so))
-    for fn, sig in ((libs["distance"].distance_f32, dmod._SIG),
-                    (libs["flash_attention"].flash_attention_bf16, fmod._SIG)):
+    for fn, sig in ((libs["fused_scan"].fused_ivf_sq8_topk, fused_scan._SIG),
+                    (libs["fused_adc"].fused_ivf_pq_topk, fused_adc._SIG)):
         fn.argtypes, fn.restype = sig, ctypes.c_int
     return libs
 
 
-def parent_distance(lib, q, x):
-    """The parent's distance kernel, inner product, f32 database."""
+def parent_fused(parent, name, args, *, nprobe, k, mask_dead):
+    """The parent's fused kernel ``name`` on the wrapper's arguments."""
     import torch
 
     from repro_torch.kernels import _build
 
-    out = torch.empty((x.shape[0], q.shape[0], x.shape[1]), dtype=torch.float32, device=q.device)
-    _build.check(lib.distance_f32(q.data_ptr(), x.data_ptr(), out.data_ptr(), q.shape[0],
-                                  x.shape[0], x.shape[1], x.shape[2], 0,
-                                  torch.cuda.current_stream().cuda_stream), "parent distance")
-    return out
+    q, members = args[0], args[4]
+    b, d = q.shape
+    n_seg, s, _ = args[2 if name == "fused_ivf_pq_topk" else 1].shape
+    _, nlist, cap = members.shape
+    if name == "fused_ivf_sq8_topk":
+        fn, sizes = parent["fused_scan"].fused_ivf_sq8_topk, (b, n_seg, s, d)
+    else:
+        _, m, c = args[1].shape
+        fn, sizes = parent["fused_adc"].fused_ivf_pq_topk, (b, n_seg, s, d, m, c)
+    lids = torch.empty((n_seg, b, k), dtype=torch.int32, device=q.device)
+    sims = torch.empty((n_seg, b, k), dtype=torch.float32, device=q.device)
+    _build.check(fn(*(t.data_ptr() for t in args), lids.data_ptr(), sims.data_ptr(), *sizes, nlist,
+                    cap, min(nprobe, nlist), k, int(mask_dead),
+                    torch.cuda.current_stream().cuda_stream), f"parent {name}")
+    return lids, sims
 
 
-def parent_flash(lib, q, k, v):
-    """The parent's flash kernel, bf16, causal."""
+def fused_old_against_new(case, parent, n, n_old=None):
+    """The parent's fused kernel held against the plain version like the new
+    one, then both timed in turns (new, old, old, new), the parent with
+    ``n_old`` launches a turn (default ``n``). Returns the times."""
     import torch
 
-    from repro_torch.kernels import _build
-
-    out = torch.empty_like(q)
-    b, sq, hq, dh = q.shape
-    _, sk, hkv, _ = k.shape
-    _build.check(lib.flash_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                          b, sq, sk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3],
-                                          *v.stride()[:3], 1, 0,
-                                          torch.cuda.current_stream().cuda_stream),
-                 "parent flash_attention")
-    return out
-
-
-def old_against_new(name, new, old, want, tol, n):
-    """The parent's kernel held against the plain version like the new one,
-    then both timed in turns (new, old, old, new). Returns the times."""
-    import torch
-
-    err = float((old().float() - want.float()).abs().max())
+    name, common = case["name"], case["common"]
+    want = case["call"]("torch")
+    old_call = lambda: parent_fused(parent, name, case["args"], **common)  # noqa: E731
+    got = old_call()
     torch.cuda.synchronize()
-    if not err <= tol:
-        fail(f"parent {name}: max abs difference {err} > {tol}")
-    t = [cuda_ms(f, n) for f in (new, old, old, new)]
+    err = check_topk(f"parent {name} at {case['shape']}", got, want)
+    del got, want
+    n_old = n if n_old is None else n_old
+    new_call = lambda: case["call"](None)  # noqa: E731
+    t = [cuda_ms(new_call, n), cuda_ms(old_call, n_old, warmup=0),
+         cuda_ms(old_call, n_old, warmup=0), cuda_ms(new_call, n)]
     print(f"  {name}: new {t[0]:.4f} / {t[3]:.4f} ms, parent {t[1]:.4f} / {t[2]:.4f} ms "
           f"(parent max abs err {err:.3e})", flush=True)
     return dict(new_ms=[t[0], t[3]], parent_ms=[t[1], t[2]], parent_max_abs_err=err)
@@ -403,10 +432,9 @@ SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_TOL = 5e-2  # relative L2 of the bf16 last-token logits
 
 
-def flash_check(device, parent=None):
+def flash_check(device):
     """Phase 3, flash attention: the kernel against its plain version at
-    glm4-9b's prefill shape, in f32 and in bf16 (the serving dtype); with the
-    parent's kernels, the bf16 kernel timed beside the parent's."""
+    glm4-9b's prefill shape, in f32 and in bf16 (the serving dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -428,11 +456,6 @@ def flash_check(device, parent=None):
             fail(f"flash_attention {name}: max abs difference {errs[name]} > {FLASH_TOL[name]}")
         times[name] = cuda_ms(lambda: ops.flash_attention(q, k, v), 5)
         del got
-    old = None
-    if parent:  # q, k, v and want are the bf16 ones
-        old = old_against_new("flash_attention", lambda: ops.flash_attention(q, k, v),
-                              lambda: parent_flash(parent["flash_attention"], q, k, v), want,
-                              FLASH_TOL["bf16"], 10)
     del want
     # the bf16 inputs: the plain version and the library call beside the kernel
     plain_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, impl="torch"), 3, warmup=1)
@@ -447,8 +470,7 @@ def flash_check(device, parent=None):
     row = dict(replaces="src/repro/kernels/flash_attention.py:88",
                source="src/repro_torch/kernels/csrc/flash_attention.cu", max_abs_err=errs["bf16"],
                ms=times["bf16"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-               bound_by=by, shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
-               old_against_new=old)
+               bound_by=by, shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal")
     print(f"  flash_attention f32: kernel {times['f32']:.4f} ms, max abs err {errs['f32']:.3e}; "
           f"f32 CUDA-core bound {flops / PEAK_F32_FLOP_PER_S * 1e3:.4f} ms "
           f"({flops / 1e9:.1f} GFLOP); SDPA (kv heads expanded) vs kernel max abs diff "
@@ -623,9 +645,12 @@ def session_phase(ds, device):
         got, want = case["call"](None), case["call"]("torch")
         torch.cuda.synchronize()
         err = case["check"](got, want)
-        held.append(dict(kernel=case["name"], shape=case["shape"], max_abs_err=err))
-        print(f"  held {case['name']} at {case['shape']}: max abs err {err:.3e}", flush=True)
-        del case, got, want
+        del got, want
+        ms = cuda_ms(lambda: case["call"](None), 3) if case["name"] != "distance" else None
+        held.append(dict(kernel=case["name"], shape=case["shape"], max_abs_err=err, ms=ms))
+        print(f"  held {case['name']} at {case['shape']}: max abs err {err:.3e}"
+              + (f", kernel {ms:.4f} ms" if ms is not None else ""), flush=True)
+        del case
     torch.cuda.empty_cache()
     if not held:
         fail("session: no GP-driven configuration ran a kernel to hold against its plain version")
@@ -673,6 +698,9 @@ def main() -> int:
     print(f"  dynamic shared memory per block: flash bf16 (dh 128) "
           f"{_build.load('flash_attention').flash_attention_bf16_smem(128)} B; distance at "
           f"B = 32, f32: {_build.load('distance').distance_smem(32)} B", flush=True)
+    sq8, pq = _build.load("fused_scan"), _build.load("fused_adc")
+    print(f"  fused SQ8 (d 100, nlist 128, k 64) {sq8.fused_ivf_sq8_topk_smem(100, 128, 64)} B; "
+          f"fused PQ (m 5, c 256) {pq.fused_ivf_pq_topk_smem(100, 5, 256, 128, 64)} B", flush=True)
 
     # the data: glove-100-angular's shape, generated from the seed
     t0 = time.perf_counter()
@@ -685,8 +713,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     print("[3] kernels against plain versions", flush=True)
-    rows = kernel_checks(ds, space, device, parent)
-    rows["flash_attention"] = flash_check(device, parent)
+    rows, corners = kernel_checks(ds, space, device, parent)
+    rows["flash_attention"] = flash_check(device)
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. the evaluation path
@@ -768,7 +796,10 @@ def main() -> int:
         for name, r in rows.items()
     ]
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
-                      "serve": serve, "card": card, "total_s": time.perf_counter() - t_all}))
+                      "serve": serve, "fused_old_against_new": {
+                          n: r.get("old_against_new") for n, r in rows.items()
+                          if n.startswith("fused")}, "corners": corners, "card": card,
+                      "total_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

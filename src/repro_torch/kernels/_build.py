@@ -25,6 +25,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: a launcher's result when no block shape of its kernel fits the sizes
+#: (``ivf::kTooLarge`` in ``csrc/ivf_common.cuh``)
+TOO_LARGE = -1
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 

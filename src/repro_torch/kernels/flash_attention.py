@@ -14,9 +14,13 @@ Conventions, shared by the kernel and its plain version:
 * The queries sit at the tail of the key axis: query i is at position
   ``i + sk - sq``. Causal keeps keys at or before it; ``window`` keeps keys
   with ``kpos > qpos - window``.
-* A query row that sees no key at all gives 0 (the reference einsum gives
-  NaN there; the Pallas kernel gives 0 when every tile of the row is
-  skipped). No row of the LM path is fully masked, since ``sk >= sq``.
+* A query row that sees no key at all gives 0 here. The reference einsum
+  gives NaN there. The Pallas kernel gives 0 only when it skips every key
+  tile of the row; when one of the row's key tiles is computed for other
+  rows of its query tile, every score of the row is the mask value, each
+  key of that tile weighs exp(0) = 1, and the row gets the mean of V over
+  the padded tile. No row of the LM path is fully masked, since
+  ``sk >= sq``.
 
 Bound on the H100 at the serve shapes (q 4 x 2048 x 32 x 128, kv heads 2,
 bf16, causal): operations. The visible half of the score matrix is about

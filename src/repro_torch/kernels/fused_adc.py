@@ -14,11 +14,17 @@ Bound on the H100: operations, narrowly. At the main path's shapes (1,024
 queries, 289 segments, nprobe 8 of 128 clusters, 88-slot lists, m = 5, c =
 256) the kernel reads about 40 MB of inputs and writes 151 MB of results,
 against 7.6 GFLOP of f32 probe work and 380 M table lookups and adds (76 M
-live candidates, m each). Design: the warp-per-(query, segment) structure,
-staged probe, compaction and top-k of :mod:`.fused_scan`; the query's table
-(m * c f32, at most 32 KB) is loaded into the warp's shared memory once and
-read with a per-byte gather, which is what the TPU had to emulate with m
-one-hot matrix products.
+live candidates, m each). Design (``csrc/fused_adc.cu``): the block of up to
+32 queries of one segment, the probe and the top-k queues of
+:mod:`.fused_scan`; then a group of warps takes one query at a time (one warp
+when eight tables fit 64 KB of shared memory, the whole block at m = 32,
+c = 256), stages the query's table (m * c f32) in the group's shared memory,
+compacts the live member slots of the query's lists 128 a warp at a time and
+scores them one per lane with a per-byte gather, which is what the TPU had to
+emulate with m one-hot matrix products. Each warp of the group keeps its own
+queue for the query; the first merges the others' at the end. Past what one
+block's shared memory holds (a k above about 3,200 at m = 5) the wrapper
+raises :class:`~._build.KernelContractError`.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import ctypes
 import torch
 
 from . import _build
-from .fused_scan import check_ivf_inputs, probe_candidates, topk_candidates
+from .fused_scan import check_ivf_inputs, check_launch, probe_candidates, topk_candidates
 from .ref import adc_sum, segment_blocks
 
 
@@ -93,7 +99,7 @@ def fused_ivf_pq_topk_cuda(q, lut, codes, centroids, members, gids, *, nprobe: i
             q.data_ptr(), lut.data_ptr(), codes.data_ptr(), centroids.data_ptr(),
             members.data_ptr(), gids.data_ptr(), lids.data_ptr(), sims.data_ptr(),
             b, n_seg, s, d, m, c, nlist, cap, min(nprobe, nlist), k, int(mask_dead), stream)
-        _build.check(err, "fused_ivf_pq_topk")
+        check_launch(err, "fused_ivf_pq_topk", k=k, d=d, m=m, c=c, nlist=nlist)
         fused_ivf_pq_topk_cuda.launches += 1
     return lids, sims
 

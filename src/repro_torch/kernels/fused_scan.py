@@ -20,19 +20,21 @@ segments, nprobe 8 of 128 clusters, 88-slot lists, d = 100) the kernel moves
 about 300 MB (inputs read once, results written once) but does about 23 GFLOP
 of f32 work (7.6 for the probe, 15.2 for the 76 M live candidates at a
 multiply and an add per code, 0.03 to fold the scale into each query once per
-segment), which the card's 67 TFLOP/s f32 rate makes the larger time. Design:
-one warp per (query, segment), up to eight queries of one segment in a block,
-segments on the grid's y axis, so that the warps of a segment run together and
-its lists and codes stay in cache. The block stages the segment's centroids
-through shared memory 32 at a time for the probe, so they are read from device
-memory once per eight queries. The warp then compacts the live members of the
-probed lists with a ballot (a gather, cheap on a GPU, where the TPU masked a
-scan of the whole segment) and scores them one candidate per lane against the
-query times the scale (so no code is dequantized on its own), keeping scores
-and ids in shared memory (up to 9,216 candidates, so the dynamic shared-memory
-limit is raised and fewer warps share a block). The top k is a merge of 32
-per-lane sorted lists by warp-wide integer max-reductions; no score matrix
-reaches device memory.
+segment), which the card's 67 TFLOP/s f32 rate makes the larger time. Design
+(``csrc/fused_scan.cu``, stages in ``csrc/ivf_common.cuh``): a block holds up
+to 32 queries of one segment. The probe is a register-tiled f32 product of
+those queries against the segment's centroids, then each query's top nprobe
+clusters. Each warp then owns four of the queries: it walks the union of their
+probed lists 128 member slots at a time, compacts the live ones (``-1`` may
+sit anywhere in a list) and scores each live code row, one per lane, against
+every one of its queries that probed the list: the lane holds the row's code
+words in registers, so each code is turned into a float once for up to four
+products. Each query keeps its k best so far in a sorted queue in shared
+memory; scores above the queue's last entry are staged, and 32 at a time are
+sorted across the warp and merged into the queue, so the work per candidate
+is bounded whatever the candidate count and the queue is the sorted output.
+Past what one block's shared memory holds (a k above about 3,470 at d = 100,
+nlist 128) the wrapper raises :class:`~._build.KernelContractError`.
 """
 from __future__ import annotations
 
@@ -135,6 +137,16 @@ def check_ivf_inputs(name, q, centroids, members, gids, codes, code_dtype, code_
             f"gids {tuple(gids.shape)}")
 
 
+def check_launch(err: int, name: str, **sizes) -> None:
+    """Raise for a launcher's result: :class:`~._build.KernelContractError`
+    when no block shape fits these sizes in shared memory, RuntimeError for a
+    CUDA error."""
+    if err == _build.TOO_LARGE:
+        raise _build.KernelContractError(
+            f"{name}: {sizes} need more shared memory than one block of the kernel has")
+    _build.check(err, name)
+
+
 def fused_ivf_sq8_topk_cuda(q, codes, scale, centroids, members, gids, *, nprobe: int,
                             k: int, mask_dead: bool = False):
     """CUDA kernel: same contract as :func:`fused_ivf_sq8_topk_torch`."""
@@ -155,7 +167,7 @@ def fused_ivf_sq8_topk_cuda(q, codes, scale, centroids, members, gids, *, nprobe
             q.data_ptr(), codes.data_ptr(), scale.data_ptr(), centroids.data_ptr(),
             members.data_ptr(), gids.data_ptr(), lids.data_ptr(), sims.data_ptr(),
             b, n_seg, s, d, nlist, cap, min(nprobe, nlist), k, int(mask_dead), stream)
-        _build.check(err, "fused_ivf_sq8_topk")
+        check_launch(err, "fused_ivf_sq8_topk", k=k, d=d, nlist=nlist)
         fused_ivf_sq8_topk_cuda.launches += 1
     return lids, sims
 

@@ -112,6 +112,130 @@ def test_fused_kernels(dev, k, mask_dead):
         assert_topk_match(*(t.cpu() for t in got), *(t.cpu() for t in want))
 
 
+def _fused_args(kind, dev, q, x, cents, members, gids, m=5, c=256, seed=1):
+    """The SQ8 or PQ kernel's arguments over the same segments and lists."""
+    if kind == "sq8":
+        scale = (x.abs().amax(dim=(0, 1)) / 127.0 + 1e-12).contiguous()
+        codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        return ops.fused_ivf_sq8_topk, (q, codes, scale, cents, members, gids)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.randn(q.shape[0], m, c, generator=g, device=dev)
+    codes = torch.randint(0, c, x.shape[:2] + (m,), generator=g, device=dev).to(torch.uint8)
+    return ops.fused_ivf_pq_topk, (q, lut, codes, cents, members, gids)
+
+
+def _check_fused(fn, args, **kw):
+    name = "fused_ivf_sq8_topk" if fn is ops.fused_ivf_sq8_topk else "fused_ivf_pq_topk"
+    before = ops.launch_counts()[name]
+    got = fn(*args, **kw)
+    assert ops.launch_counts()[name] == before + 1
+    want = fn(*args, **kw, impl="torch")
+    assert_topk_match(*(t.cpu() for t in got), *(t.cpu() for t in want))
+    return got
+
+
+def _assert_sorted(lids, sims):
+    """Rows sorted by score descending, ties to the lowest id, then -1 / -inf."""
+    lids, sims = lids.cpu().numpy(), sims.cpu().numpy()
+    live = np.isfinite(sims)
+    n = live.sum(-1, keepdims=True)
+    assert (live == (np.arange(lids.shape[-1]) < n)).all() and (lids[~live] == -1).all()
+    a, b = sims[..., :-1], sims[..., 1:]
+    ia, ib = lids[..., :-1], lids[..., 1:]
+    pair = live[..., 1:]
+    assert ((a > b) | ((a == b) & (ia < ib)))[pair].all()
+
+
+@pytest.mark.parametrize("k", [10, 64, 128, 256, 512])
+@pytest.mark.parametrize("nlist,cap", [(128, 72), (512, 48)], ids=["nlist128", "nlist512"])
+def test_fused_kernels_large_probe_corner(dev, nlist, cap, k):
+    """The session's corner: segments of 8,192, nprobe 128, the engine's list
+    capacity for it (P = 9,216 slots a query at nlist 128), k up to IVF_PQR's
+    largest reorder width."""
+    q, x, cents, members, gids = _inputs(dev, n_seg=2, s=8192, nlist=nlist, cap=cap, b=48,
+                                         seed=k)
+    for kind in ("sq8", "pq"):
+        fn, args = _fused_args(kind, dev, q, x, cents, members, gids)
+        lids, sims = _check_fused(fn, args, nprobe=128, k=k, mask_dead=True)
+        _assert_sorted(lids, sims)
+
+
+@pytest.mark.parametrize("d", [37, 100])
+@pytest.mark.parametrize("b", [1, 33, 100])
+def test_fused_kernels_ragged_batch_and_dims(dev, b, d):
+    """Query counts that fill no whole block (32 queries), dims that are not
+    a multiple of 4 (code rows not 4-byte aligned), PQ at m 4 / 25 / 32."""
+    q, x, cents, members, gids = _inputs(dev, d=d, b=b, seed=b + d)
+    fn, args = _fused_args("sq8", dev, q, x, cents, members, gids)
+    _assert_sorted(*_check_fused(fn, args, nprobe=5, k=64, mask_dead=False))
+    for m in (4, 25, 32):
+        fn, args = _fused_args("pq", dev, q, x, cents, members, gids, m=m, seed=m)
+        _assert_sorted(*_check_fused(fn, args, nprobe=5, k=64, mask_dead=True))
+
+
+def _exact_order(fn, args, k, **kw):
+    """Every candidate of the plain version, sorted by (score desc, id asc),
+    cut to k: the exact rows the kernel must give when the scores are exact."""
+    members = args[4]
+    lids, sims = fn(*args, k=members.shape[1] * members.shape[2], **kw, impl="torch")
+    key = torch.where(torch.isfinite(sims), sims.double(), torch.tensor(-1e300, device=sims.device))
+    order = torch.argsort(lids.double() - key * 1e6, dim=-1, stable=True)  # ids < 1e6
+    lids, sims = torch.gather(lids, -1, order)[..., :k], torch.gather(sims, -1, order)[..., :k]
+    return torch.where(torch.isfinite(sims), lids, -1), sims
+
+
+def test_fused_kernels_ties_to_the_lowest_id(dev):
+    """Integer codes, queries and tables: every score is exact in f32 and many
+    are equal, so kernel and plain version agree slot for slot once the plain
+    candidates are ordered by (score desc, id asc)."""
+    q, x, cents, members, gids = _inputs(dev, s=2000, nlist=16, cap=200, b=40, seed=3)
+    qi = torch.sign(torch.round(q * 3)).contiguous()  # entries -1, 0, 1
+    codes = torch.sign(torch.round(x * 3)).to(torch.int8)
+    sq8 = (qi, codes, torch.ones(x.shape[2], device=dev), cents, members, gids)
+    g = torch.Generator(device=dev).manual_seed(4)
+    lut = torch.randint(-2, 3, (q.shape[0], 4, 16), generator=g, device=dev).float()
+    pcodes = torch.randint(0, 16, x.shape[:2] + (4,), generator=g, device=dev).to(torch.uint8)
+    pq = (q, lut, pcodes, cents, members, gids)
+    for fn, args in ((ops.fused_ivf_sq8_topk, sq8), (ops.fused_ivf_pq_topk, pq)):
+        for k in (7, 64, 300):
+            kw = dict(nprobe=6, mask_dead=True)
+            got = fn(*args, k=k, **kw)
+            want = _exact_order(fn, args, k, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fused_kernels_padding_anywhere_and_k_beyond_live(dev):
+    """-1 slots in the middle of member lists (not only at their ends), dead
+    gids among live slots, and k beyond a query's live candidates."""
+    q, x, cents, members, gids = _inputs(dev, seed=5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    perm = torch.argsort(torch.rand(members.shape, generator=g, device=dev), dim=-1)
+    members = torch.gather(members, -1, perm)
+    members[torch.rand(members.shape, generator=g, device=dev) < 0.3] = -1
+    members = members.contiguous()
+    gids[:, ::5] = -1
+    for kind in ("sq8", "pq"):
+        fn, args = _fused_args(kind, dev, q, x, cents, members, gids)
+        for mask_dead in (False, True):
+            lids, sims = _check_fused(fn, args, nprobe=3, k=512, mask_dead=mask_dead)
+            _assert_sorted(lids, sims)
+            assert bool((lids[..., -1] == -1).all())  # fewer than 512 live candidates
+
+
+def test_fused_kernels_reject_a_k_beyond_shared_memory(dev):
+    """The one ceiling: a k whose queues no block shape can hold (far above
+    the 512 the engine's paths reach) raises KernelContractError."""
+    from repro_torch.kernels._build import KernelContractError
+
+    q, x, cents, members, gids = _inputs(dev)
+    for kind, k in (("sq8", 4096), ("pq", 40000)):
+        fn, args = _fused_args(kind, dev, q, x, cents, members, gids)
+        with pytest.raises(KernelContractError, match="shared memory"):
+            fn(*args, nprobe=3, k=k)
+    fn, args = _fused_args("sq8", dev, q, x, cents, members, gids)
+    _check_fused(fn, args, nprobe=3, k=1024)  # well above the engine's widths still runs
+
+
 def _attn_inputs(dev, dtype, b, sq, sk, hq, hkv, dh, seed=0):
     """q, k ~ N(0, 1); v uniform in [-1, 1), so |out| < 1 and one bf16 ulp of
     the output is at most 2**-8."""

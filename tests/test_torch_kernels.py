@@ -45,9 +45,11 @@ def test_distance_parity(impl, kind, bf16):
 # ---------------------------------------------------------------------------
 # fused IVF kernels
 # ---------------------------------------------------------------------------
-def _ivf_inputs(seed=3, n_seg=2, s=256, d=32, nlist=8, nprobe=3, dead_tail=20):
+def _ivf_inputs(seed=3, n_seg=2, s=256, d=32, nlist=8, nprobe=3, dead_tail=20, holes=0.0):
     """Segments, k-means-like centroids, capacity-bound member lists and gids
-    with dead (-1) slots, as the IVF builds lay them out."""
+    with dead (-1) slots, as the IVF builds lay them out; with ``holes``, each
+    list's slots shuffled and that share of them set to -1, so padding sits
+    anywhere in a list."""
     from repro.vdms.indexes import _ivf_cap, _member_lists
 
     rng = np.random.default_rng(seed)
@@ -61,7 +63,32 @@ def _ivf_inputs(seed=3, n_seg=2, s=256, d=32, nlist=8, nprobe=3, dead_tail=20):
     gids = np.arange(n_seg * s, dtype=np.int32).reshape(n_seg, s)
     gids[:, -dead_tail:] = -1
     q = _unit(rng, 16, d)
+    if holes:
+        members = rng.permuted(members, axis=2)
+        members[rng.random(members.shape) < holes] = -1
     return q, segs, cents, members, gids, nprobe
+
+
+def _sq8_args(q, segs, cents, members, gids):
+    scale = (np.abs(segs).max(axis=(0, 1)) / 127.0 + 1e-12).astype(np.float32)
+    codes = np.clip(np.round(segs / scale), -127, 127).astype(np.int8)
+    return q, codes, scale, cents, members, gids
+
+
+def _pq_args(q, segs, cents, members, gids, seed=5, m=4, c=16):
+    rng = np.random.default_rng(seed)
+    lut = rng.standard_normal((q.shape[0], m, c)).astype(np.float32)
+    codes = rng.integers(0, c, segs.shape[:2] + (m,)).astype(np.uint8)
+    return q, lut, codes, cents, members, gids
+
+
+def _fused_parity(kernel, args, impl, **kw):
+    jfn, tfn = ((jops.fused_ivf_sq8_topk, ops.fused_ivf_sq8_topk) if kernel == "sq8"
+                else (jops.fused_ivf_pq_topk, ops.fused_ivf_pq_topk))
+    want = jfn(*map(jnp.asarray, args), impl=impl, **kw)
+    got = tfn(*_t(*args), **kw)
+    assert_topk_match(got[0], got[1], *want)
+    return got
 
 
 def _t(*arrays):
@@ -103,6 +130,53 @@ def test_fused_ivf_pq_topk_parity(impl, k, mask_dead):
     got = ops.fused_ivf_pq_topk(*_t(q, lut, codes, cents, members, gids),
                                 nprobe=nprobe, k=k, mask_dead=mask_dead)
     assert_topk_match(got[0], got[1], *want)
+
+
+@pytest.mark.parametrize("impl,s", [("xla", 2048), ("pallas_interpret", 512)])
+@pytest.mark.parametrize("kernel", ["sq8", "pq"])
+def test_fused_large_probe_corner_parity(impl, s, kernel):
+    """Every list probed (nprobe = nlist) at k 128, with the engine's list
+    capacity for that nprobe, so a query's member slots P = nprobe * cap
+    reach past the segment (the session's corner, scaled down)."""
+    nlist = 16 if s > 1024 else 8
+    q, segs, cents, members, gids, nprobe = _ivf_inputs(seed=6, n_seg=1, s=s, d=16,
+                                                        nlist=nlist, nprobe=nlist)
+    assert nprobe * members.shape[2] >= s
+    make = _sq8_args if kernel == "sq8" else _pq_args
+    lids, sims = _fused_parity(kernel, make(q, segs, cents, members, gids), impl,
+                               nprobe=nprobe, k=128, mask_dead=False)
+    assert bool(torch.isfinite(sims).all())  # more live candidates than k everywhere
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("mask_dead", [False, True])
+@pytest.mark.parametrize("kernel", ["sq8", "pq"])
+def test_fused_padding_anywhere_parity(impl, mask_dead, kernel):
+    """-1 slots in the middle of member lists, and dead gids among the live
+    slots: the plain versions drop exactly what the JAX kernels drop."""
+    q, segs, cents, members, gids, nprobe = _ivf_inputs(seed=7, holes=0.3, dead_tail=0)
+    gids[:, ::7] = -1  # dead points scattered through the lists
+    first_hole = (members[..., :-1] < 0) & (members[..., 1:] >= 0)
+    assert first_hole.any()  # some -1 is followed by a live slot
+    make = _sq8_args if kernel == "sq8" else _pq_args
+    lids, _ = _fused_parity(kernel, make(q, segs, cents, members, gids), impl,
+                            nprobe=nprobe, k=64, mask_dead=mask_dead)
+    dead = np.take_along_axis(gids[:, None, :].repeat(16, 1), np.maximum(lids.numpy(), 0), 2) < 0
+    assert dead[lids.numpy() >= 0].any() != mask_dead  # dead ids survive only without the mask
+
+
+def test_fused_launch_result_too_large_is_a_contract_error():
+    """A launcher that finds no block shape for the sizes returns TOO_LARGE,
+    which the wrappers raise as a KernelContractError (a fault of the call,
+    not a bad configuration)."""
+    from repro_torch.kernels._build import TOO_LARGE, KernelContractError
+    from repro_torch.kernels.fused_scan import check_launch
+
+    with pytest.raises(KernelContractError, match="shared memory"):
+        check_launch(TOO_LARGE, "fused_ivf_sq8_topk", k=1 << 20)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        check_launch(700, "fused_ivf_sq8_topk", k=64)
+    check_launch(0, "fused_ivf_sq8_topk", k=64)
 
 
 # ---------------------------------------------------------------------------
