@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once, with each kernel's registers and
      spills; when the parent commit's kernel sources are unpacked under
-     ``build/parent``, its two fused IVF kernels beside them;
+     ``build/parent``, its two fused IVF kernels and ``pq_adc`` beside them;
   3. each kernel held against its plain PyTorch version on the card, at the
      shapes its path gives it (glove-100-angular size, the defaults of FLAT,
      IVF_SQ8 and IVF_PQ; ``pq_adc`` at 1,024 queries x 32 IVF_PQ segments of
@@ -17,9 +17,11 @@ Phases, each fatal on failure:
      and its bound (bytes over 3.35 TB/s or operations over the peak of
      their type, the H100 SXM data-sheet figures); the two fused kernels
      also at two corners of the search space (segments of 8,192, nprobe 128,
-     k 128, nlist 128 and 512), and the parent's fused kernels, when built,
-     held against the same plain versions and timed in turns with the new
-     ones (new, old, old, new) at the defaults and both corners;
+     k 128, nlist 128 and 512); ``pq_adc`` also at the kernel benchmark's
+     shape (128 x 8,192, m 8); the parent's kernels, when built, held against
+     the same plain versions and timed in turns with the new ones (new, old,
+     old, new): the fused ones at the defaults and both corners, ``pq_adc``
+     at both of its shapes with int32 and with byte codes;
   4. the evaluation path: ``VDMSTuningEnv(dataset, mode="wall")`` over the
      defaults of all seven index families in the session's order, with the
      kernels' launch counters reset just before and read just after;
@@ -234,7 +236,7 @@ def kernel_checks(ds, space, device, parent=None):
 
     from repro_torch.kernels import ops
 
-    rows = {}
+    rows, pq = {}, {}
     for fam in ("FLAT", "IVF_SQ8", "IVF_PQ"):
         case = config_case(ds, space.default_config(fam), device)
         got, want = case["call"](None), case["call"]("torch")
@@ -264,8 +266,13 @@ def kernel_checks(ds, space, device, parent=None):
         if fam == "IVF_PQ":  # pq_adc at the evaluation path's scale: these queries'
             # tables against the codes of the first 32 segments
             lut, codes = case["args"][1], case["args"][2]
-            pq_adc_check(lut, codes[:32].reshape(-1, case["m"]).int())
+            pq["evaluation"] = pq_adc_check(lut, codes[:32].reshape(-1, case["m"]).int(), parent)
         del case, call
+    # pq_adc at the kernel benchmark's shape: 128 tables (m 8, c 256) x 8,192 codes
+    g = torch.Generator(device=device).manual_seed(0)
+    pq["benchmark"] = pq_adc_check(torch.randn(128, 8, 256, generator=g, device=device),
+                                   torch.randint(0, 256, (8192, 8), generator=g, device=device,
+                                                 dtype=torch.int32), parent)
     torch.cuda.empty_cache()
     for name, r in rows.items():
         print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -290,15 +297,17 @@ def kernel_checks(ds, space, device, parent=None):
             corners.append(row)
             del case
             torch.cuda.empty_cache()
-    return rows, corners
+    return rows, corners, pq
 
 
-def pq_adc_check(lut, codes):
-    """``pq_adc`` against its plain version at the evaluation path's scale
-    (the same summing order, so the difference must be 0), timed beside the
-    plain version and the one-hot ``torch.matmul`` (the one-hot built once,
-    outside the timing), with int32 and with byte codes. Its kernels-line
-    row comes from the kernel benchmark, pq_adc's own path."""
+def pq_adc_check(lut, codes, parent=None):
+    """``pq_adc`` against its plain version (the same summing order, so the
+    difference must be 0), timed beside the plain version and the one-hot
+    ``torch.matmul`` (the one-hot built once, outside the timing), with int32
+    and with byte codes; with the parent's kernel, that one held against the
+    plain version too and old and new timed in turns (new, old, old, new) for
+    each code type, each time printed with its share of the byte bound. Its
+    kernels-line row comes from the kernel benchmark, pq_adc's own path."""
     import torch
 
     from repro_torch.bench.bench_kernels import onehot_codes
@@ -319,8 +328,9 @@ def pq_adc_check(lut, codes):
     ms = cuda_ms(lambda: ops.pq_adc(lut, codes), 20)
     plain_ms = cuda_ms(lambda: ops.pq_adc(lut, codes, impl="torch"), 5)
     library_ms = cuda_ms(lambda: torch.matmul(flat, onehot), 10)
+    del onehot
     # the same call with the codes stored as bytes (what an index keeps): no
-    # range check (no host synchronisation) and no conversion in the wrapper
+    # range check at c = 256 (no host synchronisation)
     codes8 = codes.to(torch.uint8)
     if not torch.equal(ops.pq_adc(lut, codes8), got):
         fail("pq_adc: uint8 codes give another result than int32 codes")
@@ -329,7 +339,28 @@ def pq_adc_check(lut, codes):
           f"(one-hot matmul {lib_err:.3e}), kernel {ms:.4f} ms (uint8 codes {u8_ms:.4f} ms), "
           f"plain {plain_ms:.4f} ms, one-hot matmul {library_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}), launches in this check {ops.launch_counts()['pq_adc'] - before}", flush=True)
-    del onehot, got, want
+    res = dict(shape=f"lut {tuple(lut.shape)} codes {tuple(codes.shape)}", max_abs_err=err,
+               ms=ms, u8_ms=u8_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms)
+    if parent:
+        for name, cc in (("int32", codes), ("uint8", codes8)):
+            old = parent_pq_adc(parent, lut, cc)
+            torch.cuda.synchronize()
+            if not torch.equal(old, want):
+                fail(f"parent pq_adc ({name} codes) differs from the plain version")
+            byte_ms = bound(nbytes(lut, cc, got), 0.0)[0]
+            new_call = lambda: ops.pq_adc(lut, cc)  # noqa: E731
+            old_call = lambda: parent_pq_adc(parent, lut, cc)  # noqa: E731
+            t = [cuda_ms(new_call, 20), cuda_ms(old_call, 20), cuda_ms(old_call, 20),
+                 cuda_ms(new_call, 20)]
+            print(f"  pq_adc {name} codes: new {t[0]:.4f} / {t[3]:.4f} ms, parent {t[1]:.4f} / "
+                  f"{t[2]:.4f} ms; byte bound {byte_ms:.4f} ms, share new "
+                  f"{byte_ms / t[0]:.3f} / {byte_ms / t[3]:.3f}, parent {byte_ms / t[1]:.3f} / "
+                  f"{byte_ms / t[2]:.3f}", flush=True)
+            res[f"old_against_new_{name}"] = dict(new_ms=[t[0], t[3]], parent_ms=[t[1], t[2]],
+                                                  byte_bound_ms=byte_ms)
+            del old
+    del got, want
+    return res
 
 
 # The parent commit's versions of the kernels this slice redesigned, built
@@ -337,7 +368,7 @@ def pq_adc_check(lut, codes):
 # (``git archive <parent> src/repro_torch/kernels/csrc | tar -x -C build/parent``),
 # so that old and new are timed on one card in one call.
 PARENT_SRC = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" / "csrc"
-PARENT_KERNELS = ("fused_scan", "fused_adc")
+PARENT_KERNELS = ("fused_scan", "fused_adc", "pq_adc")
 
 
 def start_parent_build():
@@ -371,10 +402,34 @@ def finish_parent_build(procs):
         if proc.returncode != 0:
             fail(f"parent {n}: nvcc exited {proc.returncode}\n{log}")
         libs[n] = ctypes.CDLL(str(so))
+    # the parent's pq_adc: lut, uint8 codes, out, q, n, m, c, stream
+    old_pq_sig = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for fn, sig in ((libs["fused_scan"].fused_ivf_sq8_topk, fused_scan._SIG),
-                    (libs["fused_adc"].fused_ivf_pq_topk, fused_adc._SIG)):
+                    (libs["fused_adc"].fused_ivf_pq_topk, fused_adc._SIG),
+                    (libs["pq_adc"].pq_adc, old_pq_sig)):
         fn.argtypes, fn.restype = sig, ctypes.c_int
     return libs
+
+
+def parent_pq_adc(parent, lut, codes):
+    """The parent's ``pq_adc`` as its wrapper called it: int32 codes (or
+    c < 256) range-checked on the host, then converted to bytes."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    q, m, c = lut.shape
+    n = codes.shape[0]
+    out = torch.empty((q, n), dtype=torch.float32, device=lut.device)
+    if codes.dtype != torch.uint8 or c < 256:
+        wide = codes.int()
+        if bool(((wide < 0) | (wide >= c)).any()):
+            fail("parent pq_adc: codes out of range")
+    codes8 = codes.to(torch.uint8).contiguous()
+    _build.check(parent["pq_adc"].pq_adc(lut.data_ptr(), codes8.data_ptr(), out.data_ptr(), q, n,
+                                         m, c, torch.cuda.current_stream().cuda_stream),
+                 "parent pq_adc")
+    return out
 
 
 def parent_fused(parent, name, args, *, nprobe, k, mask_dead):
@@ -701,6 +756,14 @@ def main() -> int:
     sq8, pq = _build.load("fused_scan"), _build.load("fused_adc")
     print(f"  fused SQ8 (d 100, nlist 128, k 64) {sq8.fused_ivf_sq8_topk_smem(100, 128, 64)} B; "
           f"fused PQ (m 5, c 256) {pq.fused_ivf_pq_topk_smem(100, 5, 256, 128, 64)} B", flush=True)
+    from repro_torch.kernels.pq_adc import launch_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in ((1024, 131072, 5, 256), (128, 8192, 8, 256)):
+        plan = launch_plan(*shape, sms)
+        print(f"  pq_adc plan at (q, n, m, c) {shape}: query tile {plan['qt']}, {plan['warps']} "
+              f"warps, grid {plan['grid']} of {sms} SMs, {plan['smem']} B shared memory, tables "
+              f"staged {plan['staged_bytes']} B for {plan['out_bytes']} B written", flush=True)
 
     # the data: glove-100-angular's shape, generated from the seed
     t0 = time.perf_counter()
@@ -713,7 +776,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     print("[3] kernels against plain versions", flush=True)
-    rows, corners = kernel_checks(ds, space, device, parent)
+    rows, corners, pq_adc_runs = kernel_checks(ds, space, device, parent)
     rows["flash_attention"] = flash_check(device)
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -798,7 +861,8 @@ def main() -> int:
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
                       "serve": serve, "fused_old_against_new": {
                           n: r.get("old_against_new") for n, r in rows.items()
-                          if n.startswith("fused")}, "corners": corners, "card": card,
+                          if n.startswith("fused")}, "corners": corners, "pq_adc": pq_adc_runs,
+                      "card": card,
                       "total_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": kernels}))
     print(card)

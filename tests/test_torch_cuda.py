@@ -347,6 +347,90 @@ def test_pq_adc_kernel_rejects_what_it_does_not_take(dev):
                                                                    device=dev))
 
 
+PQ_M = (1, 5, 8, 32)
+PQ_C = (16, 64, 200, 256)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 255, 4097])
+@pytest.mark.parametrize("q", [1, 3, 5, 13, 1023])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8], ids=["int32", "uint8"])
+def test_pq_adc_kernel_ragged_tiles(dev, q, n, dtype):
+    """Query counts that fill no whole tile of the interleaved tables, rows
+    that fill no whole chunk and output rows that are not 16-byte aligned
+    (n % 4 != 0), at every m in PQ_M and c in PQ_C (c = 200: not a multiple
+    of 4 tables' width; c = 16: small tables)."""
+    for m in PQ_M:
+        for c in PQ_C:
+            g = torch.Generator(device=dev).manual_seed(q * n + m * c)
+            lut = torch.randn(q, m, c, generator=g, device=dev)
+            codes = torch.randint(0, c, (n, m), generator=g, device=dev).to(dtype)
+            got = ops.pq_adc(lut, codes)
+            torch.testing.assert_close(got, ops.pq_adc(lut, codes, impl="torch"), rtol=0, atol=0,
+                                       msg=lambda s: f"m={m} c={c}: {s}")
+
+
+@pytest.mark.parametrize("m", [1, 5, 8])
+def test_pq_adc_kernel_unaligned_byte_codes(dev, m):
+    """uint8 codes from a contiguous view at an odd storage offset: the
+    kernel reads them as they lie (data_ptr not 4-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    n = 1001
+    big = torch.randint(0, 256, (n * m + 1,), generator=g, device=dev).to(torch.uint8)
+    codes = big[1:].view(n, m)
+    assert codes.is_contiguous() and codes.data_ptr() % 4 == 1
+    lut = torch.randn(37, m, 256, generator=g, device=dev)
+    torch.testing.assert_close(ops.pq_adc(lut, codes), ops.pq_adc(lut, codes, impl="torch"),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("bad", [64, -1, 1 << 20])
+def test_pq_adc_kernel_flags_a_code_out_of_range(dev, where, bad):
+    """One int32 code outside [0, c) in the first or the last row raises;
+    the kernel clamps its reads into the tables, so a good call on the same
+    device afterwards still gives the plain version's result."""
+    from repro_torch.kernels._build import KernelContractError
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    lut = torch.randn(40, 5, 64, generator=g, device=dev)
+    codes = torch.randint(0, 64, (4097, 5), generator=g, device=dev, dtype=torch.int32)
+    bad_codes = codes.clone()
+    bad_codes[0 if where == "first" else -1, 4 if where == "first" else 0] = bad
+    with pytest.raises(KernelContractError, match="outside"):
+        ops.pq_adc(lut, bad_codes)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ops.pq_adc(lut, codes), ops.pq_adc(lut, codes, impl="torch"),
+                               rtol=0, atol=0)
+    if bad == 64:  # the same code as a byte, at c = 64 < 256
+        with pytest.raises(KernelContractError, match="outside"):
+            ops.pq_adc(lut, bad_codes.to(torch.uint8))
+
+
+def test_pq_adc_kernel_synchronises_only_to_read_its_flag(dev):
+    """uint8 codes at c = 256 make no host synchronisation; int32 codes make
+    one (the read of the kernel's range flag)."""
+    import warnings
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    lut = torch.randn(128, 8, 256, generator=g, device=dev)
+    codes = torch.randint(0, 256, (8192, 8), generator=g, device=dev, dtype=torch.int32)
+    codes8 = codes.to(torch.uint8)
+    ops.pq_adc(lut, codes8), ops.pq_adc(lut, codes)  # build and plan outside the count
+    torch.cuda.synchronize()
+    counts = {}
+    for name, cc in (("uint8", codes8), ("int32", codes)):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ops.pq_adc(lut, cc)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts[name] = [str(w.message) for w in seen
+                        if "called a synchronizing CUDA operation" in str(w.message)]
+    assert {k: len(v) for k, v in counts.items()} == {"uint8": 0, "int32": 1}, counts
+
+
 def test_fused_pq_kernel_k_beyond_candidates(dev):
     """IVF_PQR's reorder width can exceed a query's live candidates: the
     kernel fills the slots beyond them with -1 / -inf, as the plain version."""

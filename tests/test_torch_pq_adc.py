@@ -19,7 +19,7 @@ from repro.vdms import ivf_pqr as jpqr
 from repro.vdms.segments import plan_segments, stack_sealed
 from repro_torch.bench import bench_kernels
 from repro_torch.kernels import ops
-from repro_torch.kernels.pq_adc import pq_adc_cuda
+from repro_torch.kernels.pq_adc import STAGE_SHARE, launch_plan, plan_chunks, pq_adc_cuda
 from repro_torch.kernels._build import KernelContractError
 from repro_torch.vdms import (
     VDMSInstance,
@@ -60,6 +60,83 @@ def test_pq_adc_blocks_and_dispatch():
         pq_adc_cuda(lut, codes)  # the kernel's wrapper never falls back to the host
     with pytest.raises(ValueError, match="unknown impl"):
         ops.pq_adc(lut, codes, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch plan (pure arithmetic, checked here on the host)
+# ---------------------------------------------------------------------------
+SMEM_BLOCK = 232448  # opt-in shared memory of one H100 block
+PLAN_SHAPES = {  # (q, n, m, c)
+    "benchmark": (128, 8192, 8, 256),  # the kernel benchmark's row
+    "evaluation": (1024, 131072, 5, 256),  # chip_smoke phase 3: 32 IVF_PQ segments
+    "ragged_q13_c64": (13, 4097, 5, 64),
+    "ragged_q5_c16": (5, 1001, 8, 16),
+    "ragged_q1023_c200": (1023, 4097, 1, 200),
+    "ragged_q3_m32": (3, 2049, 32, 16),
+    "one_query": (1, 131072, 5, 256),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES.values()), ids=list(PLAN_SHAPES))
+def test_pq_adc_plan_covers_each_pair_once(shape):
+    """Every (query, row) pair belongs to exactly one lane of one chunk of
+    one work unit; the block fits shared memory; the tables staged stay
+    under the output written (at most STAGE_SHARE of it)."""
+    q, n, m, c = shape
+    plan = launch_plan(q, n, m, c)
+    qt, qi, lanes, rows = plan["qt"], plan["qi"], plan["lanes"], plan["rows"]
+    assert qt == qi * lanes and 32 % lanes == 0 and rows == 4 * (32 // lanes)
+    # the tiles cover [0, q) and the chunks [0, n), each once
+    assert (plan["tiles"] - 1) * qt < q <= plan["tiles"] * qt
+    assert (plan["chunks"] - 1) * rows < n <= plan["chunks"] * rows
+    # a lane's (query, row) slots cover a chunk's qt x rows once
+    slots = sorted((li * qi + k, 4 * g + r) for lane in range(32)
+                   for li, g in [(lane % lanes, lane // lanes)] for k in range(qi) for r in range(4))
+    assert slots == [(a, b) for a in range(qt) for b in range(rows)]
+    # the blocks' warps take every (tile, chunk) unit once
+    seen = np.zeros((plan["tiles"], plan["chunks"]), dtype=np.int32)
+    staged = set()
+    for b, w, tile, ch in plan_chunks(plan):
+        assert 0 <= b < plan["grid"] and 0 <= w < plan["warps"]
+        seen[tile, ch] += 1
+        staged.add((b, tile))
+    assert (seen == 1).all()
+    # shared memory and tables staged
+    assert plan["smem"] <= SMEM_BLOCK
+    assert plan["smem"] == qt * m * c * 4 + plan["warps"] * m * (rows + 4)
+    assert plan["staged_bytes"] == len(staged) * qt * m * c * 4
+    assert plan["staged_bytes"] <= STAGE_SHARE * 4 * q * n < 4 * q * n
+
+
+@pytest.mark.parametrize("name", ["benchmark", "evaluation"])
+def test_pq_adc_plan_fills_every_sm(name):
+    """At the benchmark's and the evaluation's shapes a block runs on each
+    of the 132 SMs, each with work, and the evaluation shape takes the
+    widest tile (16 queries: four lanes read 64 contiguous bytes a lookup)."""
+    plan = launch_plan(*PLAN_SHAPES[name])
+    assert plan["grid"] == 132 and plan["units"] >= 132 and plan["warps"] == 32
+    assert {b for b, *_ in plan_chunks(plan)} == set(range(132))
+    if name == "evaluation":
+        assert plan["qt"] == 16 and plan["staged_bytes"] < plan["out_bytes"] / 10
+
+
+@pytest.mark.parametrize("q,n,m,c", [(17, 2049, 32, 256), (1023, 3, 8, 256), (4, 5, 181, 256)])
+def test_pq_adc_plan_with_fewer_rows_than_a_table(q, n, m, c):
+    """Fewer code rows than a table has entries: no plan stages under the
+    output, so blocks take whole tiles and each tile's tables are staged at
+    most twice; the largest table that fits one query (m 181 at c 256) runs
+    with fewer warps."""
+    plan = launch_plan(q, n, m, c)
+    assert plan["smem"] <= SMEM_BLOCK
+    assert plan["grid"] <= plan["tiles"]
+    assert plan["staged_bytes"] < 2 * plan["tiles"] * plan["qt"] * m * c * 4
+    if m == 181:
+        assert plan["qt"] == 1 and plan["warps"] < 32
+
+
+def test_pq_adc_plan_rejects_a_table_no_block_holds():
+    with pytest.raises(KernelContractError, match="does not fit"):
+        launch_plan(1, 10, 227, 256)
 
 
 # ---------------------------------------------------------------------------
