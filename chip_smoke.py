@@ -45,7 +45,20 @@ Phases, each fatal on failure:
      2048-token prompt, 32 generated tokens, counters reset just before and
      read just after; then prefill(t) + one decode step against prefill(t+1)
      at full width;
-  8. a ``{"kernels": [...]}`` line, then the card line and the device line.
+  8. the paper's method comparison (Fig. 6/7 with Table VI's split):
+     ``repro_torch.bench.bench_efficiency.run`` on glove_like at the
+     ``REPRO_BENCH_FULL`` scale (32,768 vectors, 128 queries, k 10, wall
+     mode), VDTuner and the four baselines for 15 observations each, with
+     every method's best wall QPS at the recall floors, its recommend/eval
+     seconds and its wall seconds; counters reset just before and read just
+     after, and the FLAT, IVF_SQ8 and IVF_PQ kernels must each have launched;
+     then each of those kernels held against its plain version at every
+     FLAT / IVF_SQ8 / IVF_PQ configuration a method measured, on the suite's
+     dataset (32,768 vectors, 128 queries);
+  9. a ``{"kernels": [...]}`` line, then the card line and the device line.
+
+The script sets ``REPRO_BENCH_FULL=1`` in its own process before it imports
+the port (only the benchmark harness reads it).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
@@ -55,6 +68,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -714,8 +728,113 @@ def session_phase(ds, device):
                 held=held)
 
 
+# the method-comparison phase: bench_efficiency at the REPRO_BENCH_FULL scale
+EFFICIENCY = dict(datasets=("glove_like",), n_iters=15)
+
+
+def efficiency_phase(device):
+    """Phase 8: the paper's method comparison through
+    ``bench_efficiency.run`` in wall mode; fails on an evaluation that
+    failed for a reason other than ``FAILURES_ALLOWED`` and on a kernel of
+    the evaluation path that did not launch. Then each kernel is held
+    against its plain version at every FLAT / IVF_SQ8 / IVF_PQ
+    configuration that a method measured, on the suite's own dataset."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import bench_efficiency, common
+    from repro_torch.kernels import ops
+
+    if (common.N_VECTORS, common.MODE) != (32768, "wall"):
+        fail(f"efficiency: REPRO_BENCH_FULL scale expected, got {common.N_VECTORS} vectors "
+             f"in {common.MODE} mode")
+    envs, measured = [], []  # the suite's environment; each configuration it measured
+
+    def make_env(*args, **kw):
+        env = common.make_env(*args, **kw)
+        measure = env._measure_one  # reached once per distinct configuration
+
+        def measure_one(cfg):
+            result = measure(cfg)
+            measured.append(dict(cfg))
+            return result
+
+        env._measure_one = measure_one
+        envs.append(env)
+        return env
+
+    bench_efficiency.make_env = make_env
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = bench_efficiency.run(device=device, **EFFICIENCY)["glove_like"]
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        phase_s = time.perf_counter() - t0
+    finally:
+        bench_efficiency.make_env = common.make_env
+    floors = common.RECALL_FLOORS
+    print("  method       " + " ".join(f"r>={r:<9}" for r in floors)
+          + "  recommend_s  eval_s   wall_s  failed", flush=True)
+    methods = {}
+    for m in bench_efficiency.METHODS:
+        totals = out["session"][m]["totals"]
+        qps = out["speed_at_floor"][m]
+        methods[m] = dict(qps_at_floor=qps, recommend_s=totals["recommend_s"],
+                          eval_s=totals["eval_s"], wall_s=out["wall_s"][m],
+                          n_evals=totals["n_evals"], n_failures=totals["n_failures"])
+        print(f"  {m:12s} " + " ".join(f"{qps[r]:<12.1f}" for r in floors)
+              + f" {totals['recommend_s']:10.4f} {totals['eval_s']:8.4f} "
+              f"{out['wall_s'][m]:8.4f}  {totals['n_failures']}", flush=True)
+    print(f"  iterations for vdtuner to match the best baseline: "
+          f"{out['iters_to_match_best_baseline']}; launches {launches}; {phase_s:.1f} s",
+          flush=True)
+    for f in out["failures"]:
+        print(f"  failed evaluation: {f['config']}: {f['error']}")
+    bad = [f for f in out["failures"] if not any(a in f["error"] for a in FAILURES_ALLOWED)]
+    if bad:
+        fail(f"efficiency: {len(bad)} evaluations failed for other reasons: {bad}")
+    for m, r in methods.items():
+        if r["n_evals"] != EFFICIENCY["n_iters"]:
+            fail(f"efficiency: {m} made {r['n_evals']} evaluations, expected "
+                 f"{EFFICIENCY['n_iters']}")
+        if not any(np.isfinite(v) and v > 0 for v in r["qps_at_floor"].values()):
+            fail(f"efficiency: {m} reached no recall floor with a positive QPS")
+    for name in ("distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk"):
+        if launches[name] == 0:
+            fail(f"efficiency: kernel {name} was not launched")
+    # every distinct FLAT / IVF_SQ8 / IVF_PQ configuration that any method
+    # evaluated (the methods share the one environment): its kernel at the
+    # shapes of this dataset and configuration, against its plain version
+    (env,) = envs
+    held = []
+    t1 = time.perf_counter()
+    for cfg in measured:
+        case = config_case(env.dataset, cfg, device)
+        if case is None:
+            continue
+        got, want = case["call"](None), case["call"]("torch")
+        torch.cuda.synchronize()
+        err = case["check"](got, want)
+        held.append(dict(kernel=case["name"], shape=case["shape"], max_abs_err=err))
+        print(f"  held {case['name']} at {case['shape']}: max abs err {err:.3e}", flush=True)
+        del case, got, want
+    for name in ("distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk"):
+        if not any(h["kernel"] == name for h in held):
+            fail(f"efficiency: no configuration of this phase held {name} against its plain "
+                 f"version")
+    print(f"  {len(held)} configurations held in {time.perf_counter() - t1:.1f} s", flush=True)
+    del env, envs, measured
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(methods=methods, iters_to_match=out["iters_to_match_best_baseline"],
+                tradeoff_std=out["tradeoff_std"], failures=out["failures"], launches=launches,
+                phase_s=phase_s, held=held)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    os.environ["REPRO_BENCH_FULL"] = "1"  # phase 8's scale, read when the harness imports
 
     import torch
 
@@ -850,7 +969,15 @@ def main() -> int:
     launches["flash_attention"] = serve["launches"]["flash_attention"]
     print(f"  phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8. results
+    # 8. the paper's method comparison
+    t0 = time.perf_counter()
+    print(f"[8] bench_efficiency on glove_like, 32,768 vectors, wall mode, "
+          f"{len(EFFICIENCY['datasets'])} dataset x {EFFICIENCY['n_iters']} observations per "
+          f"method", flush=True)
+    efficiency = efficiency_phase(device)
+    print(f"  phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 9. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -859,7 +986,7 @@ def main() -> int:
         for name, r in rows.items()
     ]
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
-                      "serve": serve, "fused_old_against_new": {
+                      "serve": serve, "efficiency": efficiency, "fused_old_against_new": {
                           n: r.get("old_against_new") for n, r in rows.items()
                           if n.startswith("fused")}, "corners": corners, "pq_adc": pq_adc_runs,
                       "card": card,

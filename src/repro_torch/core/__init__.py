@@ -2,10 +2,9 @@
 system tuning, with the GP and the fused acquisition in PyTorch.
 
 The public tuning API is the ask/tell trio of the JAX package's
-``repro.core``: an ask/tell recommender (``VDTuner``), an ``ObjectiveSpec``
-(what to maximize), and a ``TuningSession`` (who drives recommendation,
-evaluation dispatch, ledger, checkpoints). The baseline tuners are not
-ported yet.
+``repro.core``: an ask/tell recommender (``VDTuner`` or a baseline), an
+``ObjectiveSpec`` (what to maximize), and a ``TuningSession`` (who drives
+recommendation, evaluation dispatch, ledger, checkpoints).
 """
 from .acquisition import cei, ehvi_mc, ei, greedy_select, qehvi_sequential_greedy
 from .acquisition_torch import (
@@ -16,6 +15,7 @@ from .acquisition_torch import (
     fused_qehvi_select,
     hvi_2d_torch,
 )
+from .baselines import ALL_BASELINES, DefaultOnly, OpenTunerLike, OtterTuneLike, QEHVI, RandomLHS
 from .budget import SuccessiveAbandon, scores_by_hv_influence
 from .gp import GP, GPParams
 from .hypervolume import hv_2d, hvi_2d
@@ -50,9 +50,10 @@ from .space import Config, Param, SearchSpace
 from .tuner import Observation, TunerBase, TuningFailure, VDTuner
 
 __all__ = [
-    "BatchExecutor", "Config", "DriftDetector",
+    "ALL_BASELINES", "BatchExecutor", "Config", "DefaultOnly", "DriftDetector",
     "EvalBackend", "GP", "GPParams", "OBJECTIVES", "ObjectiveSpec", "Observation",
-    "Param", "RetryPolicy", "SearchSpace",
+    "OpenTunerLike", "OtterTuneLike", "Param", "QEHVI", "RandomLHS", "RetryPolicy",
+    "SearchSpace",
     "SequentialBatchMixin", "SequentialExecutor", "StopSession", "SuccessiveAbandon",
     "ThreadedExecutor", "TunerBase", "TuningFailure", "TuningSession", "VDTuner",
     "as_eval_backend", "balanced_base", "cei", "cei_torch", "checkpoint_every",

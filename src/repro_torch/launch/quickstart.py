@@ -21,28 +21,12 @@ import sys
 import time
 from typing import Any, Dict, List, Optional
 
-from ..core import StopSession, TuningFailure, TuningSession, VDTuner, pareto_front, speed_recall
+from ..core import StopSession, TuningSession, VDTuner, pareto_front, speed_recall
 from ..device import resolve_device
 from ..vdms import VDMSTuningEnv, VectorDataset, make_dataset, make_space
 
 N_ITERS = 30
 INTERRUPT_AT = 12
-
-
-class _FailureLog:
-    """The evaluation backend, keeping each failed configuration with its
-    message (the tuner itself records only that it failed)."""
-
-    def __init__(self, env: VDMSTuningEnv):
-        self.env = env
-        self.failures: Dict[str, Dict[str, Any]] = {}
-
-    def __call__(self, cfg):
-        try:
-            return self.env(cfg)
-        except TuningFailure as e:
-            self.failures[json.dumps(cfg, sort_keys=True)] = {"config": dict(cfg), "error": str(e)}
-            raise
 
 
 def make_tuner(space, device):
@@ -68,7 +52,7 @@ def run(dataset: Optional[VectorDataset] = None, n_iters: int = N_ITERS,
     device = resolve_device(device)
     ds = dataset if dataset is not None else make_dataset(
         "glove_like", n=6144, n_queries=128, k=10, seed=0, device=device)
-    backend = _FailureLog(VDMSTuningEnv(ds, mode="analytic", seed=0, device=device))
+    backend = VDMSTuningEnv(ds, mode="analytic", seed=0, device=device)
     space = make_space()
 
     t0 = time.perf_counter()

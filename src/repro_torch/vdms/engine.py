@@ -21,6 +21,7 @@ import torch
 
 from ..device import resolve_device, sync
 from .datasets import VectorDataset, recall_at_k
+from .draws import BuildDraws
 from .indexes import IndexBundle, build_index, search_index
 from .merge import merge_topk
 from .registry import get_family
@@ -135,10 +136,12 @@ class VDMSInstance:
     ``device="cpu"``. ``bundle`` skips the build and serves a prebuilt
     :class:`IndexBundle` (for example one carried across from the JAX
     package with ``bundle_from_numpy``) over the same segment plan.
+    ``draws`` is the class whose ``draws(seed, device)`` instance supplies
+    the build's random draws (default :class:`~.draws.BuildDraws`).
     """
 
     def __init__(self, dataset: VectorDataset, config: Dict[str, Any], seed: int = 0,
-                 device=None, bundle: Optional[IndexBundle] = None):
+                 device=None, bundle: Optional[IndexBundle] = None, draws=None):
         self.dataset = dataset
         self.config = dict(config)
         self.device = dev = resolve_device(device)
@@ -151,12 +154,12 @@ class VDMSInstance:
         )
         if bundle is None:
             segs, gids = stack_sealed(dataset.data, self.plan)
-            gen = torch.Generator(device=dev).manual_seed(seed)
+            source = (draws or BuildDraws)(seed, dev)
             sys = {
                 "kmeans_iters": int(config["kmeans_iters"]),
                 "storage_bf16": bool(config["storage_bf16"]),
             }
-            bundle = build_index(gen, torch.from_numpy(segs).to(dev),
+            bundle = build_index(source, torch.from_numpy(segs).to(dev),
                                  torch.from_numpy(gids).to(dev), config["index_type"], config, sys)
         self.bundle = bundle
         g0 = self.plan.growing_start

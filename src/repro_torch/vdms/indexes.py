@@ -18,14 +18,15 @@ Conventions
   -1/-inf on padded slots; the engine merges.
 * Every top-k goes through ``topk_stable`` (equal scores keep the lowest
   index), which is ``lax.top_k``'s tie rule.
-* Build randomness comes from a ``torch.Generator`` (``gen``); it cannot
-  reproduce ``jax.random`` draws, so the tests carry the JAX package's built
+* Build randomness comes from ``draws`` (:mod:`.draws`): the port's own
+  ``torch.Generator`` draws by default. They cannot reproduce ``jax.random``,
+  so the tests either inject the JAX package's draws or carry its built
   arrays across with :func:`bundle_from_numpy`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -143,7 +144,7 @@ def _blocked(search_block, n_seg, per_seg_elems, *arrays):
 # =========================================================================
 # FLAT — exhaustive
 # =========================================================================
-def build_flat(gen, segs, gids, params, sys) -> IndexBundle:
+def build_flat(draws, segs, gids, params, sys) -> IndexBundle:
     return IndexBundle(
         kind="FLAT", arrays={"data": _storage(segs, sys["storage_bf16"]), "gids": gids}, static={}
     )
@@ -161,15 +162,15 @@ def _search_flat(q, arrays, *, k_seg: int):
 # =========================================================================
 # IVF family
 # =========================================================================
-def _build_ivf_common(gen, segs, nlist, kmeans_iters):
+def _build_ivf_common(draws, segs, nlist, kmeans_iters):
     n_seg, s, d = segs.shape
     nlist = int(min(max(nlist, 4), max(s // 8, 4)))
-    cents, assigns = kmeans(segs, nlist, kmeans_iters, generator=gen)
+    cents, assigns = kmeans(segs, nlist, kmeans_iters, init_idx=draws.coarse(n_seg, s, nlist))
     return nlist, cents, assigns
 
 
-def build_ivf_flat(gen, segs, gids, params, sys) -> IndexBundle:
-    nlist, cents, assigns = _build_ivf_common(gen, segs, params["nlist"], sys["kmeans_iters"])
+def build_ivf_flat(draws, segs, gids, params, sys) -> IndexBundle:
+    nlist, cents, assigns = _build_ivf_common(draws, segs, params["nlist"], sys["kmeans_iters"])
     nprobe = int(min(params["nprobe"], nlist))
     cap = _ivf_cap(segs.shape[1], nlist, nprobe)
     return IndexBundle(
@@ -205,8 +206,8 @@ def _sq8_encode(segs):
     return codes, scale
 
 
-def build_ivf_sq8(gen, segs, gids, params, sys) -> IndexBundle:
-    nlist, cents, assigns = _build_ivf_common(gen, segs, params["nlist"], sys["kmeans_iters"])
+def build_ivf_sq8(draws, segs, gids, params, sys) -> IndexBundle:
+    nlist, cents, assigns = _build_ivf_common(draws, segs, params["nlist"], sys["kmeans_iters"])
     nprobe = int(min(params["nprobe"], nlist))
     cap = _ivf_cap(segs.shape[1], nlist, nprobe)
     codes, scale = _sq8_encode(segs)
@@ -252,13 +253,13 @@ def _pq_encode(segs, cb):
     return codes.reshape(n_seg, s, m)
 
 
-def build_ivf_pq(gen, segs, gids, params, sys) -> IndexBundle:
+def build_ivf_pq(draws, segs, gids, params, sys) -> IndexBundle:
     n_seg, s, d = segs.shape
     m = int(params["m"])
     while d % m != 0:  # snap to a divisor of d
         m -= 1
     c = 2 ** int(params["nbits"])
-    nlist, cents, assigns = _build_ivf_common(gen, segs, params["nlist"], sys["kmeans_iters"])
+    nlist, cents, assigns = _build_ivf_common(draws, segs, params["nlist"], sys["kmeans_iters"])
     nprobe = int(min(params["nprobe"], nlist))
     cap = _ivf_cap(s, nlist, nprobe)
     dsub = d // m
@@ -266,7 +267,7 @@ def build_ivf_pq(gen, segs, gids, params, sys) -> IndexBundle:
     pool = segs.reshape(-1, m, dsub)
     sample = pool[:: max(1, pool.shape[0] // 8192)]
     cb, _ = kmeans_l2(sample.transpose(0, 1).contiguous(), c, sys["kmeans_iters"],
-                      generator=gen)  # (m, c, dsub)
+                      init_idx=draws.codebooks(m, sample.shape[0], c))  # (m, c, dsub)
     return IndexBundle(
         kind="IVF_PQ",
         arrays={
@@ -329,12 +330,10 @@ def _prune(data, cand_i, cand_s, m_links):
 
 
 def _build_graph(data: torch.Tensor, m_links: int, ef_construction: int,
-                 shortcuts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 shortcuts) -> torch.Tensor:
     """Graphs of a segment stack (n_seg, s, d): exact kNN candidates + the
-    HNSW diversity heuristic, with small-world shortcut links in the last
-    columns. ``shortcuts`` (s, n_rand) may be injected; by default they are
-    drawn from a generator seeded like the JAX package's key
-    (``s * 7 + m_links``), one draw shared by every segment."""
+    HNSW diversity heuristic, with the small-world ``shortcuts`` (s, n_rand),
+    one draw shared by every segment, in the last columns."""
     n_seg, s, d = data.shape
     efc = min(ef_construction, s - 1)
     graphs = []
@@ -346,25 +345,23 @@ def _build_graph(data: torch.Tensor, m_links: int, ef_construction: int,
         del sims
         graphs.append(_prune(x, cand_i, cand_s, m_links))
     graph = torch.cat(graphs)
-    n_rand = max(1, m_links // 8)
-    if shortcuts is None:
-        g = torch.Generator(device=data.device).manual_seed(s * 7 + m_links)
-        shortcuts = torch.randint(0, s, (s, n_rand), generator=g, device=data.device)
+    n_rand = shortcuts.shape[1]
     graph[:, :, -n_rand:] = torch.as_tensor(shortcuts, device=data.device).to(torch.int32)
     return graph
 
 
-def build_hnsw(gen, segs, gids, params, sys) -> IndexBundle:
+def build_hnsw(draws, segs, gids, params, sys) -> IndexBundle:
     n_seg, s, d = segs.shape
     m_links = int(max(4, min(params["M"], 64)))
     efc = int(min(max(params["efConstruction"], 16), s - 1))
     ef = int(min(max(params["ef"], 8), s))
+    shortcuts = draws.shortcuts(s, max(1, m_links // 8), m_links)
     return IndexBundle(
         kind="HNSW",
         arrays={
             "data": _storage(segs, sys["storage_bf16"]),
             "gids": gids,
-            "graph": _build_graph(segs, m_links, efc),
+            "graph": _build_graph(segs, m_links, efc, shortcuts),
         },
         static={"ef": ef, "m_links": m_links},
     )
@@ -419,8 +416,8 @@ def _search_hnsw(q, arrays, *, k_seg: int, ef: int, m_links: int):
 # =========================================================================
 # SCANN — IVF + int8 score-aware quantized scan + exact re-ranking
 # =========================================================================
-def build_scann(gen, segs, gids, params, sys) -> IndexBundle:
-    nlist, cents, assigns = _build_ivf_common(gen, segs, params["nlist"], sys["kmeans_iters"])
+def build_scann(draws, segs, gids, params, sys) -> IndexBundle:
+    nlist, cents, assigns = _build_ivf_common(draws, segs, params["nlist"], sys["kmeans_iters"])
     nprobe = int(min(params["nprobe"], nlist))
     cap = _ivf_cap(segs.shape[1], nlist, nprobe)
     codes, scale = _sq8_encode(segs)
@@ -460,10 +457,10 @@ def _search_scann(q, arrays, *, k_seg: int, nprobe: int, reorder_k: int):
 # =========================================================================
 # AUTOINDEX — delegated IVF_FLAT build with derived parameters
 # =========================================================================
-def build_autoindex(gen, segs, gids, params, sys) -> IndexBundle:
+def build_autoindex(draws, segs, gids, params, sys) -> IndexBundle:
     s = segs.shape[1]
     auto = {"nlist": max(4, int(np.sqrt(s) * 2)), "nprobe": 16}
-    return build_ivf_flat(gen, segs, gids, auto, sys)
+    return build_ivf_flat(draws, segs, gids, auto, sys)
 
 
 # =========================================================================
@@ -540,11 +537,12 @@ def _build_cost_hnsw(config, seg_size, dim, first_build):
 # =========================================================================
 # registry dispatch
 # =========================================================================
-def build_index(gen, segs, gids, index_type: str, params: Dict, sys: Dict) -> IndexBundle:
+def build_index(draws, segs, gids, index_type: str, params: Dict, sys: Dict) -> IndexBundle:
     """Build per-segment indexes for the stacked segments ``(n_seg, S, d)``
-    (f32 tensor; ``gids`` (n_seg, S) int32 on the same device). ``gen`` is
-    the ``torch.Generator`` every build-side draw comes from."""
-    return get_family(index_type).build(gen, segs, gids, params, sys)
+    (f32 tensor; ``gids`` (n_seg, S) int32 on the same device). ``draws``
+    (a :class:`~repro_torch.vdms.draws.BuildDraws` or a stand-in with its
+    methods) supplies every build-side random draw."""
+    return get_family(index_type).build(draws, segs, gids, params, sys)
 
 
 def search_index(bundle: IndexBundle, q: torch.Tensor, k_seg: int):

@@ -10,10 +10,11 @@ SCANN (int8 codes): PQ compression for the scan plus one raw copy for the
 re-rank.
 
 The family is NOT registered when ``repro_torch.vdms`` imports: calling
-:func:`register` is the only integration step, after which ``make_space()``
-exposes its parameters and the engine builds and searches it. The registry
-is process-wide, so a caller that registers it for a while undoes that with
-``REGISTRY.unregister("IVF_PQR")``.
+:func:`register` (the public hook ``register_family``) is the only
+integration step, after which ``make_space()`` exposes its parameters and
+the engine builds and searches it. The registry is process-wide, so a
+caller that registers it for a while undoes that with
+``unregister_family("IVF_PQR")``.
 """
 from __future__ import annotations
 
@@ -35,13 +36,13 @@ from .indexes import (
     _storage,
     build_ivf_pq,
 )
-from .registry import REGISTRY, IndexFamily
+from .registry import REGISTRY, IndexFamily, register_family
 
 
-def build_ivf_pqr(gen, segs, gids, params, sys) -> IndexBundle:
+def build_ivf_pqr(draws, segs, gids, params, sys) -> IndexBundle:
     """The IVF_PQ bundle (codes + shared codebooks) plus the raw vectors the
     re-rank stage scores against."""
-    base = build_ivf_pq(gen, segs, gids, params, sys)
+    base = build_ivf_pq(draws, segs, gids, params, sys)
     arrays = dict(base.arrays)
     arrays["data"] = _storage(segs, sys["storage_bf16"])
     static = dict(base.static)
@@ -101,9 +102,9 @@ FAMILY = IndexFamily(
 
 
 def register() -> IndexFamily:
-    """Register IVF_PQR into the port's registry (idempotent). The built-in
+    """Register IVF_PQR through the public hook (idempotent). The built-in
     families registered when ``.indexes`` was imported, so IVF_PQR comes
     after them, as in the JAX package."""
-    if FAMILY.name not in {f.name for f in REGISTRY.families()}:
-        REGISTRY.register(FAMILY)
+    if FAMILY.name not in REGISTRY:
+        register_family(FAMILY)
     return FAMILY

@@ -9,13 +9,12 @@ re-normalized every iteration (angular metric); empty clusters keep their
 previous centroid. Cluster sums are a one-hot matrix product, as in the
 JAX package, so they are deterministic on the GPU.
 
-The initial centroids are ``k`` distinct rows per problem: drawn from
-``generator`` by default, or injected as ``init_idx`` (n_batch, k) so a test
-can start from the JAX package's own draws (``jax.random.choice``).
+The initial centroids are ``k`` distinct rows per problem, given as
+``init_idx`` (n_batch, k): the build's draws (``vdms/draws.py``) make them
+with :func:`init_indices`, or a test injects the JAX package's own
+(``jax.random.choice``).
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -26,11 +25,7 @@ def init_indices(n_batch: int, n: int, k: int, generator: torch.Generator) -> to
     return u.argsort(dim=1)[:, :k]
 
 
-def _start(x, k, generator, init_idx):
-    if init_idx is None:
-        if generator is None:
-            raise ValueError("pass generator= or init_idx=")
-        init_idx = init_indices(x.shape[0], x.shape[1], k, generator)
+def _start(x, init_idx):
     idx = torch.as_tensor(init_idx, device=x.device).long()
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
 
@@ -43,11 +38,10 @@ def _update(x, cent, assign):
     return torch.where(counts > 0, sums / counts.clamp_min(1.0), cent)
 
 
-def kmeans(x: torch.Tensor, k: int, iters: int, *, generator: Optional[torch.Generator] = None,
-           init_idx=None):
-    """x: (n_batch, n, d) normalized -> (centroids (n_batch, k, d),
-    assign (n_batch, n))."""
-    cent = _start(x, k, generator, init_idx)
+def kmeans(x: torch.Tensor, k: int, iters: int, *, init_idx):
+    """x: (n_batch, n, d) normalized, ``init_idx`` (n_batch, k) ->
+    (centroids (n_batch, k, d), assign (n_batch, n))."""
+    cent = _start(x, init_idx)
     for _ in range(iters):
         assign = torch.bmm(x, cent.transpose(1, 2)).argmax(dim=2)
         new = _update(x, cent, assign)
@@ -63,11 +57,10 @@ def _sq_dist(x, cent):
     )
 
 
-def kmeans_l2(x: torch.Tensor, k: int, iters: int, *,
-              generator: Optional[torch.Generator] = None, init_idx=None):
+def kmeans_l2(x: torch.Tensor, k: int, iters: int, *, init_idx):
     """Plain (non-spherical) Lloyd for PQ sub-codebooks; shapes as
     :func:`kmeans`."""
-    cent = _start(x, k, generator, init_idx)
+    cent = _start(x, init_idx)
     for _ in range(iters):
         cent = _update(x, cent, _sq_dist(x, cent).argmin(dim=2))
     return cent, _sq_dist(x, cent).argmin(dim=2)

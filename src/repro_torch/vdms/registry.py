@@ -12,18 +12,23 @@ the analytic cost-model hooks.
 * the engine's analytic search/build cost models ask the family for its
   FLOP formulas.
 
+Adding a family is ONE :func:`register_family` call (``ivf_pqr`` is the
+worked example); :func:`unregister_family` and :func:`temporary_family`
+undo it.
+
 The seven built-in families register themselves when
 ``repro_torch.vdms.indexes`` imports; lookups here trigger that import
 lazily so the registry is never observed half-populated.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 from ..core.space import Param, SearchSpace
 
-#: build(gen, segs, gids, params, sys) -> IndexBundle
+#: build(draws, segs, gids, params, sys) -> IndexBundle
 BuildFn = Callable[..., Any]
 #: search(q, arrays, *, k_seg, **static) -> (ids, sims), each (n_seg, B, k_seg)
 SearchFn = Callable[..., Tuple[Any, Any]]
@@ -40,8 +45,9 @@ FusedSearchFn = Callable[..., Any]
 class IndexFamily:
     """One declarative index-family spec (the unit of registration).
 
-    ``build`` takes ``(gen, segs, gids, params, sys)`` (``gen`` a
-    ``torch.Generator`` on the segments' device) and returns an
+    ``build`` takes ``(draws, segs, gids, params, sys)`` (``draws`` the
+    build's source of random draws, a ``repro_torch.vdms.draws.BuildDraws``
+    by default) and returns an
     ``IndexBundle`` whose ``kind`` equals :attr:`name`, or :attr:`builds_kind`
     when the family delegates to another family's bundle layout, like
     AUTOINDEX building IVF_FLAT bundles. ``search`` receives the bundle's
@@ -86,14 +92,19 @@ class IndexFamily:
 
 
 class IndexFamilyRegistry:
-    """Ordered name -> :class:`IndexFamily` mapping."""
+    """Ordered name -> :class:`IndexFamily` mapping with a public hook."""
 
     def __init__(self):
         self._families: Dict[str, IndexFamily] = {}
 
-    def register(self, family: IndexFamily) -> IndexFamily:
-        if family.name in self._families:
-            raise ValueError(f"index family {family.name!r} is already registered")
+    def register(self, family: IndexFamily, *, replace: bool = False) -> IndexFamily:
+        if not isinstance(family, IndexFamily):
+            raise TypeError(f"expected an IndexFamily, got {type(family).__name__}")
+        if family.name in self._families and not replace:
+            raise ValueError(
+                f"index family {family.name!r} is already registered "
+                "(pass replace=True to override)"
+            )
         if family.builds_kind is not None and family.builds_kind not in self._families:
             raise ValueError(
                 f"{family.name}: builds_kind={family.builds_kind!r} is not a "
@@ -104,21 +115,39 @@ class IndexFamilyRegistry:
 
     def unregister(self, name: str) -> IndexFamily:
         """Remove a registered family (undoes :meth:`register`)."""
-        family = self.get(name)
-        del self._families[name]
-        return family
+        if name not in self._families:
+            raise ValueError(self._unknown(name))
+        return self._families.pop(name)
+
+    @contextlib.contextmanager
+    def temporary(self, family: IndexFamily) -> Iterator[IndexFamily]:
+        """Register ``family`` for the duration of a ``with`` block."""
+        self.register(family)
+        try:
+            yield family
+        finally:
+            self._families.pop(family.name, None)
+
+    def _unknown(self, name: str) -> str:
+        return (
+            f"unknown index family {name!r}; registered families: "
+            f"{sorted(self._families)}"
+        )
 
     def get(self, name: str) -> IndexFamily:
         try:
             return self._families[name]
         except KeyError:
-            raise ValueError(
-                f"unknown index family {name!r}; registered families: "
-                f"{sorted(self._families)}"
-            ) from None
+            raise ValueError(self._unknown(name)) from None
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(self._families)
 
     def families(self) -> Tuple[IndexFamily, ...]:
         return tuple(self._families.values())
+
+    def __contains__(self, name: object) -> bool:
+        return name in self._families
 
 
 #: The process-wide registry every dispatch path consults.
@@ -132,9 +161,40 @@ def _ensure_builtins() -> None:
     from . import indexes  # noqa: F401
 
 
+# ---------------------------------------------------------------------------
+# public hook
+# ---------------------------------------------------------------------------
+def register_family(family: IndexFamily, *, replace: bool = False) -> IndexFamily:
+    """THE extension point: one call makes a family tunable end to end
+    (search space, engine dispatch, analytic mode)."""
+    _ensure_builtins()
+    return REGISTRY.register(family, replace=replace)
+
+
+def unregister_family(name: str) -> IndexFamily:
+    _ensure_builtins()
+    return REGISTRY.unregister(name)
+
+
+def temporary_family(family: IndexFamily):
+    """Context manager registering ``family`` only inside a ``with`` block."""
+    _ensure_builtins()
+    return REGISTRY.temporary(family)
+
+
 def get_family(name: str) -> IndexFamily:
     _ensure_builtins()
     return REGISTRY.get(name)
+
+
+def registered_families() -> Tuple[IndexFamily, ...]:
+    _ensure_builtins()
+    return REGISTRY.families()
+
+
+def registered_names() -> Tuple[str, ...]:
+    _ensure_builtins()
+    return REGISTRY.names()
 
 
 # ---------------------------------------------------------------------------
@@ -155,9 +215,27 @@ SYSTEM_PARAMS: Tuple[Param, ...] = (
 )
 
 
-def make_space() -> SearchSpace:
-    """The holistic search space of every registered family, in
-    registration order (for the seven built-ins, identical to the JAX
-    package's: same params, defaults and encoding-column order)."""
+def make_space(include: Optional[Sequence[str]] = None) -> SearchSpace:
+    """Derive the holistic search space from the registry.
+
+    With ``include=None`` every registered family contributes its declared
+    ``Param`` specs, in registration order (for the seven built-ins,
+    identical to the JAX package's: same params, defaults and
+    encoding-column order). ``include`` restricts the space to a subset of
+    families (validated against the registry; registration order is kept
+    whatever order ``include`` names them in).
+    """
     _ensure_builtins()
-    return SearchSpace.from_families(REGISTRY.families(), SYSTEM_PARAMS)
+    families = REGISTRY.families()
+    if include is not None:
+        wanted = tuple(include)
+        unknown = sorted(set(wanted) - set(REGISTRY.names()))
+        if unknown:
+            raise ValueError(
+                f"unknown index families {unknown}; registered families: "
+                f"{sorted(REGISTRY.names())}"
+            )
+        families = tuple(f for f in families if f.name in wanted)
+        if not families:
+            raise ValueError("include= selected no families")
+    return SearchSpace.from_families(families, SYSTEM_PARAMS)

@@ -38,8 +38,11 @@ class VDMSTuningEnv:
     ``mode="wall"`` measures real QPS on the device; ``mode="analytic"`` uses
     the engine's deterministic cost model (recall is always real). Results
     are cached by canonical config, so repeated samples are free. A build
-    slower than ``build_timeout`` seconds is a :class:`TuningFailure`.
-    ``device`` defaults to the GPU and raises without one.
+    slower than ``build_timeout`` seconds is a :class:`TuningFailure`; each
+    failed configuration is kept with its message in ``failures``.
+    ``device`` defaults to the GPU and raises without one. ``draws`` is
+    handed to every ``VDMSInstance`` (the build's random draws; default the
+    port's own).
     """
 
     def __init__(
@@ -50,6 +53,7 @@ class VDMSTuningEnv:
         build_timeout: float = 120.0,
         repeats: int = 3,
         device=None,
+        draws=None,
     ):
         if dataset is None:
             raise ValueError("static workload requires dataset=")
@@ -59,7 +63,9 @@ class VDMSTuningEnv:
         self.build_timeout = build_timeout
         self.repeats = repeats
         self.device = resolve_device(device)
+        self.draws = draws
         self.cache: Dict[Tuple, Dict[str, float]] = {}
+        self.failures: Dict[Tuple, Dict[str, Any]] = {}
         self.n_evals = 0
         self.total_replay_time = 0.0
 
@@ -88,7 +94,8 @@ class VDMSTuningEnv:
         return tuple(items)
 
     def _measure_one(self, cfg: Dict[str, Any]) -> Dict[str, float]:
-        inst = VDMSInstance(self.dataset, cfg, seed=self.seed, device=self.device)
+        inst = VDMSInstance(self.dataset, cfg, seed=self.seed, device=self.device,
+                            draws=self.draws)
         if inst.build_time > self.build_timeout:
             raise TuningFailure(f"index build exceeded {self.build_timeout}s")
         result = inst.measure(repeats=self.repeats, mode=self.mode)
@@ -106,7 +113,10 @@ class VDMSTuningEnv:
             # config-dependent crashes become TuningFailure; anything else is
             # a programmer error and propagates instead of poisoning the GP
             tf = classify_eval_error(e)
-            if tf is None or tf is e:
+            if tf is None:
+                raise
+            self.failures[key] = {"config": dict(cfg), "error": str(tf)}
+            if tf is e:
                 raise
             raise tf from e
         finally:

@@ -467,3 +467,24 @@ def test_ivf_pqr_fused_matches_composed_on_card(dev):
             assert set(a[a >= 0]) == set(b[b >= 0])
     finally:
         REGISTRY.unregister("IVF_PQR")
+
+
+@pytest.mark.parametrize("name", ["default", "random_lhs", "ottertune", "qehvi", "opentuner"])
+def test_baseline_runs_in_wall_mode_on_card(dev, name):
+    """Each baseline of ``ALL_BASELINES`` for a short wall-mode session over a
+    small glove_like set on the card: no evaluation fails, every QPS is
+    positive, and the GP baselines fit on the card."""
+    from repro_torch.bench.common import make_env, run_method
+    from repro_torch.core import ALL_BASELINES
+    from repro_torch.vdms import make_space
+
+    assert name in ALL_BASELINES
+    env = make_env("glove_like", seed=0, mode="wall", n=4096, device=dev)
+    tuner, wall, session = run_method(name, env, make_space(), 8, seed=0, device=dev,
+                                      **({"n_init": 4} if name in ("ottertune", "qehvi") else {}))
+    assert tuner.history and wall > 0
+    assert not env.failures and not any(o.failed for o in tuner.history)
+    assert all(o.raw["speed"] > 0 and 0.0 <= o.raw["recall"] <= 1.0 for o in tuner.history)
+    assert session.ledger_dict()["totals"]["n_evals"] == len(tuner.history)
+    if name in ("ottertune", "qehvi"):
+        assert tuner.device.type == "cuda"

@@ -26,3 +26,52 @@ def test_port_has_modules():
 def test_no_jax_or_reference_imports(path):
     bad = sorted({r for r in _imported_roots(path) if r in ("jax", "jaxlib", "repro")})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the modules of the port's tuning stack, with a name each must define
+TUNING_STACK = {
+    "repro_torch.core.baselines": "ALL_BASELINES",
+    "repro_torch.vdms.draws": "BuildDraws",
+    "repro_torch.vdms.registry": "register_family",
+    "repro_torch.bench.common": "run_method",
+    "repro_torch.bench.bench_autoconfig": "run",
+    "repro_torch.bench.bench_efficiency": "run",
+    "repro_torch.bench.bench_ablation": "run",
+    "repro_torch.bench.bench_preference": "run",
+    "repro_torch.bench.bench_costaware": "run",
+    "repro_torch.bench.bench_overhead": "run_ask_overhead",
+    "repro_torch.bench.run": "main",
+}
+
+
+@pytest.fixture(scope="module")
+def imported_alone():
+    """Import each tuning-stack module in a fresh interpreter (no test
+    module has loaded JAX there) and list the JAX and reference modules
+    that came with it."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    script = (
+        "import importlib, json, sys\n"
+        "out = {}\n"
+        f"for name, attr in {TUNING_STACK!r}.items():\n"
+        "    mod = importlib.import_module(name)\n"
+        "    out[name] = [hasattr(mod, attr), sorted(m for m in sys.modules\n"
+        "                 if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))]\n"
+        "print(json.dumps(out))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", sorted(TUNING_STACK))
+def test_tuning_stack_module_imports_alone(module, imported_alone):
+    has_attr, foreign = imported_alone[module]
+    assert has_attr, f"{module} lacks {TUNING_STACK[module]}"
+    assert foreign == [], f"importing {module} loaded {foreign}"

@@ -25,7 +25,7 @@ from repro_torch.vdms import (
     set_search_pipeline,
 )
 from repro_torch.vdms import indexes as tidx
-from repro_torch.vdms.kmeans import kmeans, kmeans_l2
+from repro_torch.vdms.kmeans import init_indices, kmeans, kmeans_l2
 from torch_parity import (
     SEVEN,
     TOL,
@@ -81,8 +81,8 @@ def test_kmeans_matches_reference(spherical):
 def test_kmeans_default_draws_are_seeded():
     x = torch.randn(3, 200, 16, generator=torch.Generator().manual_seed(0))
     x = torch.nn.functional.normalize(x, dim=-1)
-    a = kmeans(x, 8, 4, generator=torch.Generator().manual_seed(5))
-    b = kmeans(x, 8, 4, generator=torch.Generator().manual_seed(5))
+    a = kmeans(x, 8, 4, init_idx=init_indices(3, 200, 8, torch.Generator().manual_seed(5)))
+    b = kmeans(x, 8, 4, init_idx=init_indices(3, 200, 8, torch.Generator().manual_seed(5)))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 

@@ -3,9 +3,10 @@
 
 Inputs are numpy arrays made from a seed and handed to both packages. Build
 randomness cannot match (``jax.random`` vs ``torch.Generator``), so indexes
-are built once by the JAX package and carried across with
-``repro_torch.vdms.bundle_from_numpy``. The reference builds are cached per
-process, so the test modules that share a worker share them.
+are either built once by the JAX package and carried across with
+``repro_torch.vdms.bundle_from_numpy``, or built by the port with the JAX
+package's draws injected (:class:`ReferenceDraws`). The reference builds are
+cached per process, so the test modules that share a worker share them.
 """
 import functools
 
@@ -93,3 +94,35 @@ def assert_ids_match(ids_a, ids_b, data, queries, atol=TOL):
             assert i >= 0, f"query {r}: padding differs"
             s = float(data[i] @ queries[r])
             assert abs(s - kth) <= atol, f"query {r}: id {i} (score {s}) differs, k-th {kth}"
+
+
+class ReferenceDraws:
+    """The JAX package's build draws, in the port's ``BuildDraws``
+    interface: the coarse k-means keys ``split(PRNGKey(seed), n_seg)``, the
+    codebook keys ``split(fold_in(PRNGKey(seed), 7), m)``, each drawing
+    ``choice(..., replace=False)`` as ``repro.vdms.kmeans`` does, and the
+    HNSW shortcuts ``randint(PRNGKey(s * 7 + m_links), ...)``."""
+
+    def __init__(self, seed, device):
+        import jax
+
+        self.jax = jax
+        self.key = jax.random.PRNGKey(seed)
+
+    def _choice(self, keys, n, k):
+        def choice(key):
+            return self.jax.random.choice(key, n, shape=(k,), replace=False)
+
+        return np.array(self.jax.vmap(choice)(keys))
+
+    def coarse(self, n_seg, n, k):
+        return self._choice(self.jax.random.split(self.key, n_seg), n, k)
+
+    def codebooks(self, m, n, c):
+        random = self.jax.random
+        return self._choice(random.split(random.fold_in(self.key, 7), m), n, c)
+
+    def shortcuts(self, s, n_rand, m_links):
+        random = self.jax.random
+        key = random.PRNGKey(s * 7 + m_links)
+        return np.array(random.randint(key, (s, n_rand), 0, s, dtype=np.int32))
