@@ -55,7 +55,23 @@ Phases, each fatal on failure:
      then each of those kernels held against its plain version at every
      FLAT / IVF_SQ8 / IVF_PQ configuration a method measured, on the suite's
      dataset (32,768 vectors, 128 queries);
-  9. a ``{"kernels": [...]}`` line, then the card line and the device line.
+  9. the streaming engine: the 1 M-vector ramp trace (glove-100's width,
+     8,192 operations) through ``VDMSTuningEnv(workload="streaming",
+     mode="wall", n_phases=2)`` for the defaults of FLAT, IVF_SQ8 and IVF_PQ
+     in phase 0, IVF_SQ8 in phase 1 and IVF_SQ8 at segments of 1,024 in
+     phase 0, each with its speed, recall, latency percentiles, build, seal
+     and upload seconds; counters reset before and read after, all three
+     kernels must have launched and a seal must fall in the replayed
+     operations; each kernel held against its plain version on the final
+     1 M live state, timed at its live shape and 50 search calls profiled
+     (``torch.profiler``: device busy time, idle share); then a delete-heavy
+     trace (16,384 base vectors, 16,384 operations) replayed for the three
+     families with compactions, each final live state's kernel held against
+     its plain version (``mask_dead=False`` and the alive-gated merge, 256
+     queries, equal result sets); then ``evaluate_batch`` in analytic mode
+     on same-signature groups at phase 8's scale: one dispatch a group and
+     recalls equal to one-by-one measurement;
+ 10. a ``{"kernels": [...]}`` line, then the card line and the device line.
 
 The script sets ``REPRO_BENCH_FULL=1`` in its own process before it imports
 the port (only the benchmark harness reads it).
@@ -832,6 +848,359 @@ def efficiency_phase(device):
                 phase_s=phase_s, held=held)
 
 
+# the streaming phase: glove-100's width over a live instance of 1 M vectors
+STREAM_TRACE = dict(n_base=1_048_576, n_ops=8_192, mix=(0.25, 0.70, 0.05), drift="ramp",
+                    dim=100, seed=0)
+# (phase, family, overrides of the defaults). At the defaults a segment seals
+# at 3,072 vectors, and the ~965 inserts of a phase never fill the tail the
+# bootstrap leaves (1,024 and 1,780 vectors), so the last run seals at 768
+# (segments of 1,024) to put seals in the replayed operations at 1 M
+STREAM_RUNS = ((0, "FLAT", {}), (0, "IVF_SQ8", {}), (0, "IVF_PQ", {}), (1, "IVF_SQ8", {}),
+               (0, "IVF_SQ8", {"segment_max_size": 1024}))
+COMPACT_TRACE = dict(n_base=16_384, n_ops=16_384, mix=(0.30, 0.30, 0.40), dim=100, seed=1)
+COMPACT_CFG = dict(segment_max_size=1024, seal_proportion=1.0)
+LIVE_QUERIES = 256
+# same-signature groups of the batched evaluation: kmeans_iters of each member
+BATCH_GROUPS = (("FLAT", (4, 8)), ("IVF_FLAT", (4, 8, 16)))
+KERNEL_NAMES = ("distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk")
+
+
+def live_kernel(live, q):
+    """The kernel call a live search of ``q`` makes (``mask_dead=False``:
+    compacted segments' -1 rows are scored and take up width), with its work
+    (bytes, operations) and a shape note."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_scan import probe_candidates
+    from repro_torch.vdms.fused import pq_lut
+
+    a, st, k = live.bundle.arrays, live.bundle.static, live.k_seg
+    n_seg, s = a["gids"].shape
+    b, d = q.shape
+    pad = int((a["gids"] < 0).sum())
+    if live.bundle.kind == "FLAT":
+        return dict(name="distance", call=lambda impl: ops.batched_ip(q, a["data"], impl=impl),
+                    library=lambda: torch.matmul(q, a["data"].transpose(1, 2)),
+                    work=(nbytes(q, a["data"]) + n_seg * b * s * 4, 2.0 * b * n_seg * s * d),
+                    shape=f"q {tuple(q.shape)} x {tuple(a['data'].shape)}, {pad} pad rows")
+    if live.bundle.kind == "IVF_SQ8":
+        name, fn = "fused_ivf_sq8_topk", ops.fused_ivf_sq8_topk
+        args = (q, a["codes"], a["scale"], a["centroids"], a["members"], a["gids"])
+    else:
+        name, fn = "fused_ivf_pq_topk", ops.fused_ivf_pq_topk
+        args = (q, pq_lut(q, a["codebooks"]), a["codes"], a["centroids"], a["members"],
+                a["gids"])
+    nlist = a["members"].shape[1]
+    cand = int((probe_candidates(q, a["centroids"], a["members"], st["nprobe"]) >= 0).sum())
+    score = cand * 2.0 * d + n_seg * b * d if name == "fused_ivf_sq8_topk" else cand * float(st["m"])
+    return dict(name=name, call=lambda impl: fn(*args, nprobe=st["nprobe"], k=k, mask_dead=False,
+                                                impl=impl),
+                library=None,
+                work=(nbytes(*args) + 2 * n_seg * b * k * 4, 2.0 * n_seg * b * nlist * d + score),
+                shape=f"B={b} n_seg={n_seg} nlist={nlist} nprobe={st['nprobe']} k={k} "
+                      f"live_candidates={cand}, {pad} pad rows")
+
+
+def hold_live(live, queries, device, label):
+    """A live instance's kernel against its plain version on ``queries``:
+    the per-segment candidates within ``TOL`` (near-ties at the k-th score
+    aside), then both through the alive-gated merge, whose result sets must
+    be equal and hold no dead id."""
+    import torch
+
+    from repro_torch.vdms.fused import _finish
+    from repro_torch.vdms.indexes import _search_flat
+    from repro_torch.vdms.merge import merge_topk
+
+    q = torch.from_numpy(queries).to(device)
+    case = live_kernel(live, q)
+    growing, ggids, alive, _ = live.search_inputs()
+    gids, topk = live.bundle.arrays["gids"], 10
+    got, want = case["call"](None), case["call"]("torch")
+    torch.cuda.synchronize()
+    if case["name"] == "distance":
+        err = float((got - want).abs().max())
+        if err > TOL:
+            fail(f"distance live {label}: max abs difference {err} > {TOL}")
+
+        def merged(impl):  # the live FLAT search with the kernel or its plain version
+            ids, sims = _search_flat(q, live.bundle.arrays, k_seg=live.k_seg, impl=impl)
+            return merge_topk(ids, sims, q, growing, ggids, topk, alive=alive)
+
+        out_k, out_p = merged(None), merged("torch")
+    else:
+        err = check_topk(f"{case['name']} live {label}", got, want)
+        out_k, out_p = (_finish(r[0], r[1], gids, q, growing, ggids, alive, topk)
+                        for r in (got, want))
+    differ = sum(set(x) != set(y) for x, y in zip(out_k.tolist(), out_p.tolist()))
+    if differ:
+        fail(f"{case['name']} live {label}: {differ} of {q.shape[0]} result sets differ from "
+             f"the plain version's")
+    hit = out_k[out_k >= 0].long()
+    if not bool(alive[hit].all()):
+        fail(f"{case['name']} live {label}: a dead id was returned")
+    print(f"  held {case['name']} on the live {label} state ({case['shape']}): max abs err "
+          f"{err:.3e}, {q.shape[0]} result sets equal after the alive-gated merge", flush=True)
+    return dict(kernel=case["name"], label=label, shape=case["shape"], max_abs_err=err)
+
+
+def time_live(live, queries, device, label, batches=None):
+    """One search chunk's kernel call at a live instance's shapes (a chunk of
+    ``search_batch_size`` queries, or each of ``batches``), timed beside its
+    plain version, the library call where one exists, and its bound."""
+    import torch
+
+    rows = []
+    for b in batches or (live.batch,):
+        q = torch.from_numpy(queries[:b]).to(device)
+        case = live_kernel(live, q)
+        call = case["call"]
+        bms, by = bound(*case["work"])
+        row = dict(kernel=case["name"], label=label, shape=case["shape"],
+                   ms=cuda_ms(lambda: call(None), 20), plain_ms=cuda_ms(lambda: call("torch"), 5),
+                   library_ms=cuda_ms(case["library"], 20) if case["library"] else None,
+                   bound_ms=bms, bound_by=by)
+        print(f"  {case['name']} at the live {label} shape ({case['shape']}): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
+              f"ms, bound {bms:.4f} ms ({by})", flush=True)
+        rows.append(row)
+        del case, call
+    return rows
+
+
+def profile_live(live, queries, device, label, n_calls=50, per_call=2):
+    """``n_calls`` live searches of ``per_call`` queries (the 1 M trace's
+    typical search call), first timed alone and then under
+    ``torch.profiler``: the device's busy time (the sum of its kernels and
+    copies), the largest of them, and its idle share of each wall clock.
+    The unprofiled wall clock is the one to read: the profiled one holds
+    the profiler's own overhead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def calls():
+        t0 = time.perf_counter()
+        for i in range(n_calls):
+            live.search(queries[i * per_call : (i + 1) * per_call], 10, mode="wall")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    live.search(queries[:per_call], 10, mode="wall")  # shapes warmed outside the window
+    torch.cuda.synchronize()
+    plain_us = calls()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_us = calls()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # the device's own events (kernels, copies): an operator's row repeats
+    # the device time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events)
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    row = dict(label=label, n_calls=n_calls, per_call=per_call, wall_ms=plain_us / 1e3,
+               profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+               idle_share=(1.0 - busy / plain_us) if busy else None,
+               profiled_idle_share=(1.0 - busy / wall_us) if busy else None,
+               top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+    if not busy:
+        print(f"  profile {label}: no device time in the trace (not measured)", flush=True)
+    else:
+        print(f"  profile {label}: {n_calls} calls of {per_call} queries, wall unprofiled "
+              f"{row['wall_ms']:.2f} ms / profiled {row['profiled_wall_ms']:.2f} ms, device busy "
+              f"{row['device_busy_ms']:.3f} ms, idle share of the unprofiled wall "
+              f"{row['idle_share']:.3f} (of the profiled {row['profiled_idle_share']:.3f}); "
+              f"top: " + "; ".join(f"{k} {ms:.3f} ms x{c}" for k, ms, c in row["top"]),
+              flush=True)
+    return row
+
+
+def run_line(tag, r, extra=""):
+    print(f"  {tag}: speed={r['speed']:.1f} recall={r['recall']:.4f} "
+          f"lat_p50/p95/p99_s={r['lat_p50_s']:.6f}/{r['lat_p95_s']:.6f}/{r['lat_p99_s']:.6f} "
+          f"build_time={r['build_time']:.3f} seal_build_s={r['seal_build_s']:.4f} "
+          f"n_seals={r['n_seals']:.0f} n_compactions={r['n_compactions']:.0f} "
+          f"compile_time={r['compile_time']:.4f} search_s={r['search_s']:.4f} "
+          f"upload_s={r['upload_s']:.4f}{extra}", flush=True)
+
+
+def streaming_phase(device):
+    """Phase 9: the live engine on the card. (a) The 1 M-vector ramp trace
+    through ``VDMSTuningEnv(workload="streaming", mode="wall", n_phases=2)``
+    (``STREAM_RUNS``); each kernel held against its plain version on the
+    final live state, timed at its live shape (chunks of 8, 32 and 128
+    queries) and 50 search calls profiled. (b) The
+    delete-heavy trace replayed for FLAT, IVF_SQ8 and IVF_PQ with
+    compactions, each final live state's kernel held against its plain
+    version. (c) ``evaluate_batch`` in analytic mode on same-signature
+    groups at phase 8's scale: one dispatch a group, recalls equal to
+    per-configuration measurement."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.vdms import (
+        VDMSTuningEnv, engine, live_seg_size, make_dataset, make_space, make_trace,
+        replay_trace, time_aware_ground_truth, tuning_env,
+    )
+
+    space = make_space()
+    out = dict(runs=[], live_kernels=[], held=[], profiles=[], compaction=[], batch={})
+    # (a) the 1 M-vector trace
+    t0 = time.perf_counter()
+    trace = make_trace("glove_like", **STREAM_TRACE)
+    print(f"  trace {trace.name}: base {trace.n_base} x {trace.dim}, {trace.n_ops} ops "
+          f"({trace.n_inserts} inserts, {trace.n_searches} searches, "
+          f"{trace.n_ops - trace.n_inserts - trace.n_searches} deletes) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    env = VDMSTuningEnv(trace=trace, workload="streaming", mode="wall", n_phases=2, seed=0,
+                        device=device)
+    print(f"  environment (two phase windows) in {time.perf_counter() - t0:.1f} s", flush=True)
+    for p in range(env.n_phases):
+        env.set_phase(p)
+        t0 = time.perf_counter()
+        time_aware_ground_truth(env.current_workload()[1], device=device)
+        torch.cuda.synchronize()
+        print(f"  phase {p}: time-aware ground truth in {time.perf_counter() - t0:.2f} s "
+              f"(once more inside the environment's first replay)", flush=True)
+    kept = {}
+    replay = tuning_env.replay_trace
+
+    def replay_keeping_live(*args, **kw):
+        result, kept["live"] = replay(*args, with_live=True, **kw)
+        return result
+
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    tuning_env.replay_trace = replay_keeping_live
+    try:
+        for phase, fam, extra in STREAM_RUNS:
+            env.set_phase(phase)
+            cfg = dict(space.default_config(fam), **extra)
+            phase_trace = env.current_workload()[1]
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = env(cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for name in KERNEL_NAMES:
+                launches[name] += counts[name]
+            seg = live_seg_size(cfg["segment_max_size"], cfg["seal_proportion"])
+            boot = phase_trace.n_base // seg
+            tag = f"phase {phase} {fam}" + (f" {extra}" if extra else "")
+            run_line(tag, r, f" (bootstrap seals {boot}, in the replayed ops "
+                             f"{r['n_seals'] - boot:.0f}) launches "
+                             f"{ {n: counts[n] for n in KERNEL_NAMES if counts[n]} } {secs:.1f} s")
+            out["runs"].append(dict(r, phase=phase, family=fam, overrides=extra, seconds=secs,
+                                    bootstrap_seals=boot, stream_seals=r["n_seals"] - boot))
+            live = kept.pop("live")
+            if not extra and phase == 0:
+                out["held"].append(hold_live(live, phase_trace.queries[:LIVE_QUERIES], device,
+                                             f"1M {fam}"))
+                out["live_kernels"] += time_live(live, phase_trace.queries, device, f"1M {fam}",
+                                                 batches=(8, 32, 128))
+                out["profiles"].append(profile_live(live, phase_trace.queries, device,
+                                                    f"1M {fam}"))
+            del live
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        tuning_env.replay_trace = replay
+    print(f"  streaming launches {launches}", flush=True)
+    for name in KERNEL_NAMES:
+        if launches[name] == 0:
+            fail(f"streaming: kernel {name} was not launched on the live path")
+    if not any(r["stream_seals"] > 0 for r in out["runs"]):
+        fail("streaming: no seal in the replayed operations")
+    for r in out["runs"]:
+        if not (0.0 < r["recall"] <= 1.0 and r["speed"] > 0):
+            fail(f"streaming: implausible result {r}")
+    out["launches"] = launches
+    del env, trace
+    gc.collect()
+
+    # (b) compactions, and the kernels on the final live states
+    trace = make_trace("glove_like", **COMPACT_TRACE)
+    queries = trace.queries[:LIVE_QUERIES]
+    for fam in ("FLAT", "IVF_SQ8", "IVF_PQ"):
+        cfg = dict(space.default_config(fam), **COMPACT_CFG)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r, live = replay_trace(trace, cfg, mode="wall", with_live=True, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        run_line(f"compaction trace {fam}", r, f" launches "
+                 f"{ {n: counts[n] for n in KERNEL_NAMES if counts[n]} } {secs:.1f} s")
+        if r["n_compactions"] <= 0:
+            fail(f"compaction trace {fam}: no compaction")
+        if counts[dict(zip(("FLAT", "IVF_SQ8", "IVF_PQ"), KERNEL_NAMES))[fam]] == 0:
+            fail(f"compaction trace {fam}: its kernel was not launched")
+        out["compaction"].append(dict(r, family=fam, seconds=secs))
+        out["held"].append(hold_live(live, queries, device, f"compaction-trace {fam}"))
+        out["live_kernels"] += time_live(live, queries, device, f"compaction-trace {fam}")
+        del live
+    del trace
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) batched evaluation at phase 8's scale
+    ds = make_dataset("glove_like", n=32768, n_queries=128, k=10, seed=0, device=device)
+    env = VDMSTuningEnv(ds, mode="analytic", seed=0, device=device)
+    single = VDMSTuningEnv(ds, mode="analytic", seed=0, device=device)
+    dispatches = []
+    pipeline_batch = engine._pipeline_batch
+
+    def counted(*args):
+        dispatches.append(len(args[2]))  # the instances of this dispatch
+        return pipeline_batch(*args)
+
+    cfgs = [dict(space.default_config(fam), kmeans_iters=it) for fam, its in BATCH_GROUPS
+            for it in its]
+    engine._pipeline_batch = counted
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = env.evaluate_batch(cfgs)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        engine._pipeline_batch = pipeline_batch
+    t0 = time.perf_counter()
+    want = [single(c) for c in cfgs]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    chunks = -(-ds.queries.shape[0] // cfgs[0]["search_batch_size"])
+    print(f"  evaluate_batch of {len(cfgs)} configurations in {len(BATCH_GROUPS)} groups: "
+          f"{batch_s:.2f} s, dispatches {dispatches} (instances each), distance launches "
+          f"{counts['distance']} for {chunks} chunks; one by one {single_s:.2f} s", flush=True)
+    for c, g, w in zip(cfgs, got, want):
+        if isinstance(g, Exception):
+            fail(f"evaluate_batch: {c['index_type']} kmeans_iters {c['kmeans_iters']} failed: {g}")
+        print(f"  {c['index_type']:8s} kmeans_iters={c['kmeans_iters']:2d}: batched recall "
+              f"{g['recall']:.4f} speed {g['speed']:.1f}, one by one recall {w['recall']:.4f} "
+              f"speed {w['speed']:.1f}", flush=True)
+        if g["recall"] != w["recall"] or g["speed"] != w["speed"]:
+            fail(f"evaluate_batch: {c} differs from its own measurement")
+    if sorted(dispatches) != sorted(len(its) for _, its in BATCH_GROUPS):
+        fail(f"evaluate_batch: dispatches {dispatches}, expected one a group")
+    if counts["distance"] != chunks:
+        fail(f"evaluate_batch: the FLAT group made {counts['distance']} distance launches for "
+             f"{chunks} chunks")
+    out["batch"] = dict(dispatches=dispatches, distance_launches=counts["distance"],
+                        chunks=chunks, batch_s=batch_s, single_s=single_s,
+                        recalls=[g["recall"] for g in got])
+    del env, single, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     os.environ["REPRO_BENCH_FULL"] = "1"  # phase 8's scale, read when the harness imports
@@ -977,7 +1346,14 @@ def main() -> int:
     efficiency = efficiency_phase(device)
     print(f"  phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 9. results
+    # 9. the streaming engine and the batched evaluation
+    t0 = time.perf_counter()
+    print(f"[9] streaming: {STREAM_TRACE['n_base']:,}-vector base, {STREAM_TRACE['n_ops']:,} ops "
+          f"in wall mode; the compaction trace; evaluate_batch", flush=True)
+    streaming = streaming_phase(device)
+    print(f"  phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -986,7 +1362,8 @@ def main() -> int:
         for name, r in rows.items()
     ]
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
-                      "serve": serve, "efficiency": efficiency, "fused_old_against_new": {
+                      "serve": serve, "efficiency": efficiency, "streaming": streaming,
+                      "fused_old_against_new": {
                           n: r.get("old_against_new") for n, r in rows.items()
                           if n.startswith("fused")}, "corners": corners, "pq_adc": pq_adc_runs,
                       "card": card,

@@ -8,21 +8,29 @@ recommend/eval time ledger (``repro_torch.core.session.LEDGER_SCHEMA``).
 The methods share one environment per dataset, so a configuration that two
 methods both try is evaluated once.
 
-Not ported: ``run_batched`` and ``--batch-sizes`` (wall-clock tuning time
-against the batch size q). The port's ``VDMSTuningEnv`` has no
-``evaluate_batch`` yet and evaluates a q > 1 round one configuration at a
-time, so a q-speedup gate would measure nothing.
+Also the batch-parallel tuning axis: ``--batch-sizes 1 4`` runs the same
+VDTuner observation budget at each ``q`` (a q > 1 round goes through the
+environment's ``evaluate_batch``: threaded builds in analytic mode and
+same-signature instances measured together) and reports wall-clock tuning
+time against q; ``--check-speedup`` exits non-zero unless every q > 1 run is
+faster than q = 1. The JAX package's gate measured XLA compile amortisation
+across a batch; the port compiles nothing per configuration, so what q > 1
+buys here is what the batched dispatch and the threads save, if anything.
 
     PYTHONPATH=src python -m repro_torch.bench.bench_efficiency --device cpu --iters 12
+    PYTHONPATH=src python -m repro_torch.bench.bench_efficiency --device cpu --batch-sizes 1 4 --iters 16
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 
+from ..core import TuningSession, VDTuner, hv_2d, pareto_front
+from ..device import resolve_device
 from ..vdms import make_space
 from .common import DATASETS, N_ITERS, RECALL_FLOORS, emit, make_env, run_method
 
@@ -85,22 +93,89 @@ def run(seed: int = 0, datasets=DATASETS, n_iters: int = N_ITERS, device=None):
     return out
 
 
+def run_batched(seed: int = 0, dataset: str = "glove_like", batch_sizes=(1, 4),
+                n_iters: int = N_ITERS, mode: str = "analytic", device=None):
+    """Wall-clock tuning time against the batch size q at a fixed budget of
+    observations. Each q gets a fresh environment, so the comparison is of
+    whole tuning sessions. Reports the wall seconds, the
+    recommendation/evaluation split and the normalized Pareto hypervolume,
+    so a speedup cannot silently trade away tuning quality."""
+    device = resolve_device(device)
+    space = make_space()
+    out = {}
+    for q in batch_sizes:
+        env = make_env(dataset, seed=seed, mode=mode, device=device)
+        tuner = VDTuner(space, env, seed=seed, q=int(q), device=device)
+        session = TuningSession(tuner)
+        t0 = time.perf_counter()
+        session.run(n_iters)
+        wall = time.perf_counter() - t0
+        ys = tuner.Y
+        norm = ys.max(axis=0)
+        norm = np.where(norm <= 0, 1.0, norm)
+        hv = hv_2d(pareto_front(ys) / norm, np.zeros(2))
+        out[str(q)] = {
+            "q": int(q),
+            "n_iters": n_iters,
+            "wall_s": wall,
+            "recommend_s": float(sum(o.recommend_time for o in tuner.history)),
+            "replay_s": float(env.total_replay_time),
+            "n_evals": int(env.n_evals),
+            "hv_norm": float(hv),
+            "session": session.ledger_dict(),
+        }
+        emit(f"efficiency_batched/{dataset}/q{q}", wall * 1e6 / n_iters,
+             f"wall={wall:.2f}s;hv={hv:.3f}")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--iters", type=int, default=N_ITERS,
                    help=f"observations per method (default {N_ITERS}; REPRO_BENCH_FULL=1: 200)")
     p.add_argument("--dataset", action="append", default=None, choices=DATASETS,
-                   help="repeatable; default all three")
+                   help="repeatable; default all three (the batched axis: one, glove_like)")
+    p.add_argument("--batch-sizes", type=int, nargs="+", default=None,
+                   help="run the batched-tuning axis at these q values instead of the "
+                        "method comparison")
+    p.add_argument("--mode", default=None, choices=("analytic", "wall"),
+                   help="measurement mode of the batched axis (default analytic)")
+    p.add_argument("--check-speedup", action="store_true",
+                   help="exit 1 unless every q>1 wall-clock is strictly below q=1")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="default: the GPU")
     p.add_argument("--json", default=None, metavar="PATH", help="write results as JSON")
     args = p.parse_args(argv)
-    results = run(seed=args.seed, datasets=tuple(args.dataset or DATASETS), n_iters=args.iters,
-                  device=args.device)
+    if args.batch_sizes is None:
+        if args.mode is not None or args.check_speedup:
+            p.error("--mode and --check-speedup only apply with --batch-sizes")
+        results = run(seed=args.seed, datasets=tuple(args.dataset or DATASETS),
+                      n_iters=args.iters, device=args.device)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(results, f, indent=2, default=str)
+        print(results)
+        return 0
+    if args.dataset is not None and len(args.dataset) > 1:
+        p.error("the batched axis takes one --dataset")
+    results = run_batched(seed=args.seed, dataset=(args.dataset or ["glove_like"])[0],
+                          batch_sizes=args.batch_sizes, n_iters=args.iters,
+                          mode=args.mode or "analytic", device=args.device)
     if args.json:
         with open(args.json, "w") as f:
-            json.dump(results, f, indent=2, default=str)
-    print(results)
+            json.dump(results, f, indent=2)
+    for q, r in results.items():
+        print(f"q={q}: wall={r['wall_s']:.2f}s recommend={r['recommend_s']:.2f}s "
+              f"replay={r['replay_s']:.2f}s hv={r['hv_norm']:.3f}")
+    if args.check_speedup and "1" in results:
+        base = results["1"]["wall_s"]
+        slow = {q: r["wall_s"] for q, r in results.items() if r["q"] > 1 and r["wall_s"] >= base}
+        if slow:
+            print(f"SPEEDUP REGRESSION: q=1 wall {base:.2f}s, slower batched runs: "
+                  f"{ {q: round(w, 2) for q, w in slow.items()} }", file=sys.stderr)
+            return 1
+        print(f"speedup check OK: q=1 {base:.2f}s > " + ", ".join(
+            f"q={r['q']} {r['wall_s']:.2f}s" for r in results.values() if r["q"] > 1))
     return 0
 
 

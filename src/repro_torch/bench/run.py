@@ -6,11 +6,11 @@ CSV.
     Fig. 8-10  -> bench_ablation       Fig. 12   -> bench_preference
     Fig. 13    -> bench_costaware      Table VI  -> bench_overhead
     kernels                            -> bench_kernels
+    streaming drift re-tuning          -> bench_streaming
 
 REPRO_BENCH_FULL=1 scales to paper-size runs (200 observations, wall-clock
-QPS at 32k vectors on the card); the default is the fast deterministic
-configuration (analytic QPS). The streaming suite waits for the port's
-streaming engine.
+QPS at 32k vectors on the card; the streaming suite's full trace sizes);
+the default is the fast deterministic configuration (analytic QPS).
 
     PYTHONPATH=src python -m repro_torch.bench.run --device cpu
 """
@@ -21,31 +21,14 @@ import sys
 import time
 import traceback
 
-from ..vdms import ivf_pqr, registered_names
-from .common import N_ITERS
-
-
-def parse_index_types(value):
-    """Normalize an ``--index-types`` value (comma list or sequence) and
-    validate it against the registry, raising ``ValueError`` with the sorted
-    registered families on unknown names. ``IVF_PQR`` counts when the
-    filter names it: the autoconfig suite registers it for its own run."""
-    if value is None:
-        return None
-    names = tuple(s.strip() for s in value.split(",")) if isinstance(value, str) else tuple(value)
-    known = set(registered_names())
-    if ivf_pqr.FAMILY.name in names:
-        known.add(ivf_pqr.FAMILY.name)
-    unknown = sorted(set(names) - known)
-    if unknown:
-        raise ValueError(f"unknown index types {unknown}; registered families: {sorted(known)}")
-    return names
+from .bench_streaming import parse_index_types
+from .common import FULL, N_ITERS
 
 
 def main(argv=None) -> None:
     from . import (
         bench_ablation, bench_autoconfig, bench_costaware, bench_efficiency,
-        bench_kernels, bench_overhead, bench_preference,
+        bench_kernels, bench_overhead, bench_preference, bench_streaming,
     )
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -53,8 +36,8 @@ def main(argv=None) -> None:
         "--index-types",
         default=None,
         metavar="A,B,...",
-        help="restrict the registry-aware suite (autoconfig) to these index families "
-        "(comma list validated against the registry; the public-hook IVF_PQR counts)",
+        help="restrict the registry-aware suites (autoconfig, streaming) to these index "
+        "families (comma list validated against the registry; the public-hook IVF_PQR counts)",
     )
     p.add_argument("--device", default=None, help="default: the GPU")
     p.add_argument("--iters", type=int, default=N_ITERS,
@@ -75,6 +58,8 @@ def main(argv=None) -> None:
         ("preference(Fig12)", bench_preference.run, tuning),
         ("costaware(Fig13)", bench_costaware.run, tuning),
         ("overhead(TabVI)", bench_overhead.run, tuning),
+        ("streaming(drift)", bench_streaming.run, {"quick": not FULL, "index_types": index_types,
+                                                   "device": args.device}),
     ]
     failures = 0
     for name, fn, kw in suites:

@@ -335,7 +335,12 @@ class GP:
     def predict(self, Xt: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         assert self.state is not None, "fit() first"
         s = self.state
-        mean, var = _predict_padded(s.params, s.chol, s.alpha, s.x, s.mask, self._tensor(Xt))
+        # rows past the last PAD block holding a real row are inert (zero
+        # cross-terms, zero weights): leaving them out keeps the f32 sums
+        # grouped as they were before ``with_capacity`` grew the arrays
+        n = int(np.ceil(max(s.n_real, 1) / PAD) * PAD)
+        mean, var = _predict_padded(s.params, s.chol[:, :n, :n], s.alpha[:, :n], s.x[:n],
+                                    s.mask[:n], self._tensor(Xt))
         mean = mean.cpu().numpy() * s.y_std + s.y_mean
         std = np.sqrt(var.cpu().numpy()) * s.y_std
         return mean, std

@@ -15,14 +15,32 @@ from typing import Iterator, Tuple
 import torch
 
 
+_INT_OF = {torch.float64: torch.int64, torch.float32: torch.int32,
+           torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _total_order(x: torch.Tensor) -> torch.Tensor:
+    """Integer keys that order floats totally, as ``lax.top_k`` and the
+    kernels' ``rank_key`` do: -0.0 ranks below +0.0 (a plain float sort
+    takes them as equal). Negative floats have their magnitude bits
+    flipped, so their keys fall as the magnitude grows."""
+    if not x.is_floating_point():
+        return x
+    itype = _INT_OF[x.dtype]
+    bits = x.contiguous().view(itype)
+    return torch.where(bits < 0, bits ^ torch.iinfo(itype).max, bits)
+
+
 def topk_stable(x: torch.Tensor, k: int, dim: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-``k`` along ``dim``, score-descending, with ``lax.top_k``'s tie
-    rule: equal scores keep the lowest index. ``torch.topk`` does not
-    promise that, so this is a stable descending sort, sliced."""
+    """Top-``k`` along ``dim``, score-descending, with ``lax.top_k``'s
+    order: floats in total order (+0.0 above -0.0), equal scores keeping
+    the lowest index. ``torch.topk`` does not promise that, so this is a
+    stable descending sort of the total-order keys, sliced."""
     if k > x.shape[dim]:
         raise ValueError(f"k={k} exceeds the width {x.shape[dim]} of dim {dim}")
-    vals, idx = torch.sort(x, dim=dim, descending=True, stable=True)
-    return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
+    _, idx = torch.sort(_total_order(x), dim=dim, descending=True, stable=True)
+    idx = idx.narrow(dim, 0, k)
+    return torch.gather(x, dim, idx), idx
 
 
 def topk_by_score(ids: torch.Tensor, sims: torch.Tensor, k: int):

@@ -1,33 +1,70 @@
 """PyTorch/CUDA vector data management system (the system under tune)."""
-from .datasets import VectorDataset, exact_topk, make_dataset, recall_at_k
+from .datasets import (
+    VectorDataset,
+    blend_vectors,
+    dataset_names,
+    exact_topk,
+    exact_topk_masked,
+    make_dataset,
+    recall_at_k,
+    recall_at_k_masked,
+)
 from .draws import BuildDraws
 from .engine import (
+    LiveVDMS,
     VDMSInstance,
     analytic_build_seconds,
     analytic_chunk_seconds,
+    batch_signature,
     get_search_pipeline,
+    measure_batch,
     set_search_pipeline,
 )
-from .indexes import IndexBundle, build_index, bundle_from_numpy, search_index
+from .indexes import (
+    IndexBundle,
+    build_index,
+    bundle_from_numpy,
+    concat_bundles,
+    frozen_state,
+    replace_segment,
+    search_index,
+)
 from .merge import merge_topk
 from .registry import (
     IndexFamily,
+    fused_pipeline_table,
     get_family,
     register_family,
     registered_families,
     registered_names,
+    registry_table,
     temporary_family,
     unregister_family,
 )
-from .segments import SegmentPlan, plan_segments, stack_sealed
+from .segments import SegmentPlan, live_seg_size, plan_segments, stack_sealed
 from .tuning_env import VDMSTuningEnv, classify_eval_error, make_space
+from .workload import (
+    DRIFT_SCHEDULES,
+    WorkloadTrace,
+    make_query_streams,
+    make_trace,
+    poisson_arrivals,
+    replay_query_streams,
+    replay_trace,
+    time_aware_ground_truth,
+)
 
 __all__ = [
-    "BuildDraws", "IndexBundle", "IndexFamily", "SegmentPlan", "VDMSInstance", "VDMSTuningEnv",
-    "VectorDataset", "analytic_build_seconds", "analytic_chunk_seconds", "build_index",
-    "bundle_from_numpy", "classify_eval_error", "exact_topk", "get_family",
-    "get_search_pipeline", "make_dataset", "make_space", "merge_topk", "plan_segments",
-    "recall_at_k", "register_family", "registered_families", "registered_names",
-    "search_index", "set_search_pipeline", "stack_sealed", "temporary_family",
+    "BuildDraws", "DRIFT_SCHEDULES", "IndexBundle", "IndexFamily", "LiveVDMS", "SegmentPlan",
+    "VDMSInstance", "VDMSTuningEnv", "VectorDataset", "WorkloadTrace",
+    "analytic_build_seconds", "analytic_chunk_seconds", "batch_signature", "blend_vectors",
+    "build_index", "bundle_from_numpy", "classify_eval_error", "concat_bundles",
+    "dataset_names", "exact_topk", "exact_topk_masked", "frozen_state",
+    "fused_pipeline_table", "get_family", "get_search_pipeline", "live_seg_size",
+    "make_dataset", "make_query_streams", "make_space", "make_trace", "measure_batch",
+    "merge_topk", "plan_segments", "poisson_arrivals", "recall_at_k", "recall_at_k_masked",
+    "register_family", "registered_families", "registered_names", "registry_table",
+    "replace_segment", "replay_query_streams", "replay_trace", "search_index",
+    "set_search_pipeline", "stack_sealed", "temporary_family", "time_aware_ground_truth",
     "unregister_family",
 ]

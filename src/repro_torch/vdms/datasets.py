@@ -15,7 +15,6 @@ survive the scale-down:
 from __future__ import annotations
 
 import dataclasses
-
 from typing import Optional, Union
 
 import numpy as np
@@ -61,6 +60,32 @@ def exact_topk(
         qc = torch.as_tensor(queries[i : i + chunk], device=device)
         _, idx = topk_stable(qc @ x.T, k)
         out[i : i + chunk] = idx.cpu().numpy().astype(np.int32)
+    return out
+
+
+def exact_topk_masked(
+    data: np.ndarray, queries: np.ndarray, dead: np.ndarray, k: int, chunk: int = 1024
+) -> np.ndarray:
+    """Exact top-k over the *visible* rows of ``data`` only (numpy, as in the
+    JAX package).
+
+    ``dead`` is a boolean mask over ``data`` rows; masked rows can never be
+    returned. Rows short of ``k`` visible vectors are padded with ``-1``:
+    the time-aware ground truth of streaming replays, where visibility at a
+    query's timestamp excludes not-yet-inserted and tombstoned vectors.
+    """
+    n = data.shape[0]
+    k_eff = min(k, max(int(n - dead.sum()), 0))
+    out = -np.ones((queries.shape[0], k), dtype=np.int32)
+    if k_eff == 0:
+        return out
+    for i in range(0, queries.shape[0], chunk):
+        sim = queries[i : i + chunk] @ data.T
+        sim[:, dead] = -np.inf
+        part = np.argpartition(-sim, k_eff - 1, axis=1)[:, :k_eff]
+        row = np.take_along_axis(sim, part, axis=1)
+        order = np.argsort(-row, axis=1, kind="stable")
+        out[i : i + chunk, :k_eff] = np.take_along_axis(part, order, axis=1).astype(np.int32)
     return out
 
 
@@ -120,3 +145,43 @@ def recall_at_k(pred_ids: np.ndarray, gt_ids: np.ndarray) -> float:
     for i in range(q):
         hits += len(set(pred_ids[i].tolist()) & set(gt_ids[i].tolist()))
     return hits / (q * k)
+
+
+def recall_at_k_masked(pred_ids: np.ndarray, gt_ids: np.ndarray) -> float:
+    """Order-insensitive recall where ``-1`` ground-truth slots (fewer than k
+    visible vectors at the query's timestamp) shrink the denominator."""
+    total = 0
+    hits = 0
+    for p_row, g_row in zip(pred_ids, gt_ids):
+        g = {int(g) for g in g_row.tolist() if g >= 0}
+        if not g:
+            continue
+        total += len(g)
+        hits += len({int(p) for p in p_row.tolist() if p >= 0} & g)
+    return hits / total if total else 1.0
+
+
+# ---------------------------------------------------------------------------
+# streaming sources: raw (pre-normalization) draws + drift blending
+# ---------------------------------------------------------------------------
+def dataset_names() -> tuple:
+    """Names of the three Table-III-style workloads."""
+    return tuple(_GENERATORS)
+
+
+def raw_vectors(name: str, rng: np.random.Generator, n: int, dim: int) -> np.ndarray:
+    """Un-normalized draws from a named generator (streaming trace source)."""
+    gen, _ = _GENERATORS[name]
+    return gen(rng, n, dim)
+
+
+def default_dim(name: str) -> int:
+    return _GENERATORS[name][1]
+
+
+def blend_vectors(a: np.ndarray, b: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """Per-row convex blend of two raw sources, re-normalized. ``w`` in
+    [0, 1] per row is the drift weight: 0 = pure source ``a`` (the base
+    distribution), 1 = pure source ``b`` (the drift target)."""
+    w = np.asarray(w, np.float64).reshape(-1, 1)
+    return _normalize((1.0 - w) * a + w * b)

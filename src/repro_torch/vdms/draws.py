@@ -8,9 +8,15 @@ whole build (or a whole tuning session) against the JAX package hands
 ``VDMSInstance`` / ``VDMSTuningEnv`` another class with the same
 constructor and methods (``draws=``), one that returns the reference's
 draws.
+
+A live instance (``LiveVDMS``) builds one segment at a time; the JAX
+package keys each of those builds ``fold_in(PRNGKey(seed), salt)`` with
+``salt = n_seals + n_compactions``. Here :meth:`BuildDraws.fold` returns
+the draws of one such build.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .kmeans import init_indices
@@ -24,8 +30,15 @@ class BuildDraws:
     segment), like the JAX package's key."""
 
     def __init__(self, seed: int, device):
+        self.seed = int(seed)
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def fold(self, salt: int) -> "BuildDraws":
+        """The draws of the build with this ``salt``: a fresh generator
+        seeded from ``(seed, salt)``, independent of this object's."""
+        folded = np.random.SeedSequence([self.seed, int(salt)]).generate_state(1, np.uint64)[0]
+        return BuildDraws(int(folded) >> 1, self.device)
 
     def coarse(self, n_seg: int, n: int, k: int) -> torch.Tensor:
         """``k`` distinct initial rows of each segment's coarse k-means,

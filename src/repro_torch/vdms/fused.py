@@ -1,5 +1,5 @@
 """Fused per-family search pipelines (the registry ``fused_search`` hooks),
-static flavour of the JAX package's ``vdms/fused.py``.
+the counterpart of the JAX package's ``vdms/fused.py``.
 
 Each hook replaces one family's whole per-chunk hot path (IVF probe,
 candidate scoring, per-segment top-k, global-id mapping, merge with the
@@ -13,7 +13,12 @@ version on the CPU), over every query chunk at once.
 * ``clamp=True`` (static instances whose sealed segments carry no ``-1``
   padding) narrows the per-segment width to ``min(k_seg, topk)``: exact,
   because only ``topk`` results survive the merge and no dead slot can
-  consume width.
+  consume width. Live searches never clamp.
+* ``alive`` selects the merge flavour: ``None`` the static merge, a mask
+  (the live instance's ``capacity + 1`` slots) the tombstone-filtering
+  live merge; both are :func:`~.merge.merge_topk`. With a mask the kernels
+  run with ``mask_dead=False``: compacted segments' ``-1`` rows are scored
+  and take up width, and the merge drops them.
 """
 from __future__ import annotations
 
@@ -39,47 +44,50 @@ def _map_gids(gids, lids):
     return torch.where(lids >= 0, ids, torch.full_like(ids, -1))
 
 
-def _finish(lids, sims, gids, q, growing, growing_gids, topk):
+def _finish(lids, sims, gids, q, growing, growing_gids, alive, topk):
     """Local -> global ids, dead slots (gid < 0) to -1 / -inf keeping their
-    width, then the shared merge."""
+    width, then the shared static or live merge."""
     ids = _map_gids(gids, lids)
-    sims = torch.where(ids >= 0, sims, torch.tensor(float("-inf"), device=sims.device))
-    return merge_topk(ids, sims, q, growing, growing_gids, topk)
+    sims = sims.masked_fill(ids < 0, float("-inf"))
+    return merge_topk(ids, sims, q, growing, growing_gids, topk, alive=alive)
 
 
-def fused_search_ivf_sq8(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False, nprobe):
+def fused_search_ivf_sq8(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False,
+                         alive=None, nprobe):
     """IVF_SQ8: fused probe -> int8 dequant scan -> in-kernel top-k."""
-    k_eff = min(k_seg, topk) if clamp else k_seg
+    clamped = clamp and alive is None
+    k_eff = min(k_seg, topk) if clamped else k_seg
     lids, sims = ops.fused_ivf_sq8_topk(
         q, arrays["codes"], arrays["scale"], arrays["centroids"], arrays["members"],
-        arrays["gids"], nprobe=nprobe, k=k_eff, mask_dead=clamp,
+        arrays["gids"], nprobe=nprobe, k=k_eff, mask_dead=clamped,
     )
-    return _finish(lids, sims, arrays["gids"], q, growing, growing_gids, topk)
+    return _finish(lids, sims, arrays["gids"], q, growing, growing_gids, alive, topk)
 
 
 fused_search_ivf_sq8.stages = "probe → int8 dequant scan → top-k"
 
 
-def fused_search_ivf_pq(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False, nprobe,
-                        m, c):
+def fused_search_ivf_pq(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False,
+                        alive=None, nprobe, m, c):
     """IVF_PQ: fused probe -> flat-LUT ADC scan -> in-kernel top-k."""
-    k_eff = min(k_seg, topk) if clamp else k_seg
+    clamped = clamp and alive is None
+    k_eff = min(k_seg, topk) if clamped else k_seg
     lids, sims = ops.fused_ivf_pq_topk(
         q, pq_lut(q, arrays["codebooks"]), arrays["codes"], arrays["centroids"],
-        arrays["members"], arrays["gids"], nprobe=nprobe, k=k_eff, mask_dead=clamp,
+        arrays["members"], arrays["gids"], nprobe=nprobe, k=k_eff, mask_dead=clamped,
     )
-    return _finish(lids, sims, arrays["gids"], q, growing, growing_gids, topk)
+    return _finish(lids, sims, arrays["gids"], q, growing, growing_gids, alive, topk)
 
 
 fused_search_ivf_pq.stages = "probe → PQ ADC scan → top-k"
 
 
-def fused_search_ivf_pqr(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False, nprobe,
-                         m, c, reorder_k):
+def fused_search_ivf_pqr(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False,
+                         alive=None, nprobe, m, c, reorder_k):
     """IVF_PQR: fused PQ candidate scan at width ``reorder_k`` (never
     clamped: dead slots consume reorder width exactly as composed) -> exact
     re-rank against the raw vectors -> clamped per-segment top-k."""
-    k_eff = min(k_seg, topk) if clamp else k_seg
+    k_eff = min(k_seg, topk) if clamp and alive is None else k_seg
     lids, _ = ops.fused_ivf_pq_topk(
         q, pq_lut(q, arrays["codebooks"]), arrays["codes"], arrays["centroids"],
         arrays["members"], arrays["gids"], nprobe=nprobe, k=reorder_k, mask_dead=False,
@@ -97,7 +105,7 @@ def fused_search_ivf_pqr(q, arrays, growing, growing_gids, *, k_seg, topk, clamp
     if kk < k_eff:
         lids2 = torch.nn.functional.pad(lids2, (0, k_eff - kk), value=-1)
         top_s = torch.nn.functional.pad(top_s, (0, k_eff - kk), value=float("-inf"))
-    return _finish(lids2, top_s, arrays["gids"], q, growing, growing_gids, topk)
+    return _finish(lids2, top_s, arrays["gids"], q, growing, growing_gids, alive, topk)
 
 
 fused_search_ivf_pqr.stages = "probe → PQ ADC scan → exact re-rank → top-k"

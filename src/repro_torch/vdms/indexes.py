@@ -22,11 +22,16 @@ Conventions
   ``torch.Generator`` draws by default. They cannot reproduce ``jax.random``,
   so the tests either inject the JAX package's draws or carry its built
   arrays across with :func:`bundle_from_numpy`.
+* Arrays named in a family's ``shared_arrays`` hold calibration state shared
+  across segments (quantizer scales, PQ codebooks), not per-segment stacks.
+  Incremental builds freeze them after the first sealed segment (``frozen=``,
+  from :func:`frozen_state`), like real systems that train quantizers once,
+  so per-segment bundles stay concatenable.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -150,9 +155,9 @@ def build_flat(draws, segs, gids, params, sys) -> IndexBundle:
     )
 
 
-def _search_flat(q, arrays, *, k_seg: int):
+def _search_flat(q, arrays, *, k_seg: int, impl=None):
     gids = arrays["gids"]
-    sims = ops.batched_ip(q, arrays["data"])  # (n_seg, B, S), one launch
+    sims = ops.batched_ip(q, arrays["data"], impl=impl)  # (n_seg, B, S), one launch
     sims = sims.masked_fill(gids[:, None, :] < 0, _NEG_INF)
     top_s, top_i = topk_stable(sims, k_seg)
     ids = torch.gather(gids[:, None, :].expand(-1, q.shape[0], -1), 2, top_i)
@@ -199,18 +204,22 @@ def _search_ivf_flat(q, arrays, *, k_seg: int, nprobe: int):
                     arrays["centroids"], arrays["members"])
 
 
-def _sq8_encode(segs):
-    """int8 codes with one scale per dimension shared by every segment."""
-    scale = segs.abs().amax(dim=(0, 1)) / 127.0 + 1e-12  # (d,)
+def _sq8_encode(segs, frozen=None):
+    """int8 codes with one scale per dimension shared by every segment (the
+    frozen one when given)."""
+    if frozen is None:
+        scale = segs.abs().amax(dim=(0, 1)) / 127.0 + 1e-12  # (d,)
+    else:
+        scale = frozen["scale"]
     codes = torch.clamp(torch.round(segs / scale), -127, 127).to(torch.int8)
     return codes, scale
 
 
-def build_ivf_sq8(draws, segs, gids, params, sys) -> IndexBundle:
+def build_ivf_sq8(draws, segs, gids, params, sys, frozen=None) -> IndexBundle:
     nlist, cents, assigns = _build_ivf_common(draws, segs, params["nlist"], sys["kmeans_iters"])
     nprobe = int(min(params["nprobe"], nlist))
     cap = _ivf_cap(segs.shape[1], nlist, nprobe)
-    codes, scale = _sq8_encode(segs)
+    codes, scale = _sq8_encode(segs, frozen)
     return IndexBundle(
         kind="IVF_SQ8",
         arrays={
@@ -253,7 +262,7 @@ def _pq_encode(segs, cb):
     return codes.reshape(n_seg, s, m)
 
 
-def build_ivf_pq(draws, segs, gids, params, sys) -> IndexBundle:
+def build_ivf_pq(draws, segs, gids, params, sys, frozen=None) -> IndexBundle:
     n_seg, s, d = segs.shape
     m = int(params["m"])
     while d % m != 0:  # snap to a divisor of d
@@ -263,11 +272,14 @@ def build_ivf_pq(draws, segs, gids, params, sys) -> IndexBundle:
     nprobe = int(min(params["nprobe"], nlist))
     cap = _ivf_cap(s, nlist, nprobe)
     dsub = d // m
-    # codebooks shared across segments, trained on the pooled sample
-    pool = segs.reshape(-1, m, dsub)
-    sample = pool[:: max(1, pool.shape[0] // 8192)]
-    cb, _ = kmeans_l2(sample.transpose(0, 1).contiguous(), c, sys["kmeans_iters"],
-                      init_idx=draws.codebooks(m, sample.shape[0], c))  # (m, c, dsub)
+    if frozen is None:
+        # codebooks shared across segments, trained on the pooled sample
+        pool = segs.reshape(-1, m, dsub)
+        sample = pool[:: max(1, pool.shape[0] // 8192)]
+        cb, _ = kmeans_l2(sample.transpose(0, 1).contiguous(), c, sys["kmeans_iters"],
+                          init_idx=draws.codebooks(m, sample.shape[0], c))  # (m, c, dsub)
+    else:
+        cb = frozen["codebooks"]
     return IndexBundle(
         kind="IVF_PQ",
         arrays={
@@ -416,11 +428,11 @@ def _search_hnsw(q, arrays, *, k_seg: int, ef: int, m_links: int):
 # =========================================================================
 # SCANN — IVF + int8 score-aware quantized scan + exact re-ranking
 # =========================================================================
-def build_scann(draws, segs, gids, params, sys) -> IndexBundle:
+def build_scann(draws, segs, gids, params, sys, frozen=None) -> IndexBundle:
     nlist, cents, assigns = _build_ivf_common(draws, segs, params["nlist"], sys["kmeans_iters"])
     nprobe = int(min(params["nprobe"], nlist))
     cap = _ivf_cap(segs.shape[1], nlist, nprobe)
-    codes, scale = _sq8_encode(segs)
+    codes, scale = _sq8_encode(segs, frozen)
     reorder_k = int(max(params["reorder_k"], 1))
     return IndexBundle(
         kind="SCANN",
@@ -537,12 +549,60 @@ def _build_cost_hnsw(config, seg_size, dim, first_build):
 # =========================================================================
 # registry dispatch
 # =========================================================================
-def build_index(draws, segs, gids, index_type: str, params: Dict, sys: Dict) -> IndexBundle:
+def build_index(draws, segs, gids, index_type: str, params: Dict, sys: Dict,
+                frozen: Optional[Dict[str, torch.Tensor]] = None) -> IndexBundle:
     """Build per-segment indexes for the stacked segments ``(n_seg, S, d)``
     (f32 tensor; ``gids`` (n_seg, S) int32 on the same device). ``draws``
     (a :class:`~repro_torch.vdms.draws.BuildDraws` or a stand-in with its
-    methods) supplies every build-side random draw."""
-    return get_family(index_type).build(draws, segs, gids, params, sys)
+    methods) supplies every build-side random draw. ``frozen`` (from
+    :func:`frozen_state`) reuses a previous build's shared calibration
+    (SQ8/SCANN scales, PQ codebooks) instead of training it: the incremental
+    path of live instances sealing one segment at a time."""
+    family = get_family(index_type)
+    if not frozen:  # nothing to reuse (a family without shared calibration)
+        return family.build(draws, segs, gids, params, sys)
+    return family.build(draws, segs, gids, params, sys, frozen=frozen)
+
+
+def frozen_state(bundle: IndexBundle) -> Dict[str, torch.Tensor]:
+    """The segment-shared calibration arrays (the family's declared
+    ``shared_arrays``) to freeze for incremental builds; empty for families
+    without shared state."""
+    family = get_family(bundle.kind)
+    if not family.supports_frozen:
+        return {}
+    return {k: bundle.arrays[k] for k in family.shared_arrays if k in bundle.arrays}
+
+
+def _check_same_layout(a: IndexBundle, b: IndexBundle, what: str) -> None:
+    if a.kind != b.kind or a.static != b.static:
+        raise ValueError(f"cannot {what} bundles: kind/static mismatch "
+                         f"({a.kind}/{a.static} vs {b.kind}/{b.static})")
+
+
+def concat_bundles(a: IndexBundle, b: IndexBundle) -> IndexBundle:
+    """Concatenate two bundles of the same kind/statics along the segment
+    axis. Shared calibration arrays must be frozen-compatible and are taken
+    from ``a`` (the incremental-build contract)."""
+    _check_same_layout(a, b, "concat")
+    shared = get_family(a.kind).shared_arrays
+    arrays = {k: av if k in shared else torch.cat([av, b.arrays[k]]) for k, av in a.arrays.items()}
+    return IndexBundle(kind=a.kind, arrays=arrays, static=dict(a.static))
+
+
+def replace_segment(bundle: IndexBundle, z: int, seg_bundle: IndexBundle) -> IndexBundle:
+    """A copy of ``bundle`` with the single-segment ``seg_bundle`` spliced
+    into position ``z``: the compaction path (tombstoned vectors dropped,
+    shapes preserved)."""
+    _check_same_layout(bundle, seg_bundle, "splice")
+    shared = get_family(bundle.kind).shared_arrays
+    arrays = {}
+    for k, av in bundle.arrays.items():
+        if k not in shared:
+            av = av.clone()
+            av[z] = seg_bundle.arrays[k][0]
+        arrays[k] = av
+    return IndexBundle(kind=bundle.kind, arrays=arrays, static=dict(bundle.static))
 
 
 def search_index(bundle: IndexBundle, q: torch.Tensor, k_seg: int):
@@ -578,6 +638,7 @@ REGISTRY.register(IndexFamily(
         Param("nprobe", "grid", choices=_NPROBE, default=8),
     ),
     build=build_ivf_sq8, search=_search_ivf_sq8,
+    shared_arrays=("scale",), supports_frozen=True,
     fused_search=fused_search_ivf_sq8,
     chunk_cost=_chunk_cost_ivf(0.5), build_cost=_build_cost_sq,
     description="IVF over int8 scalar-quantized codes",
@@ -591,6 +652,7 @@ REGISTRY.register(IndexFamily(
         Param("nprobe", "grid", choices=_NPROBE, default=8),
     ),
     build=build_ivf_pq, search=_search_ivf_pq,
+    shared_arrays=("codebooks",), supports_frozen=True,
     fused_search=fused_search_ivf_pq,
     chunk_cost=_chunk_cost_ivf_pq, build_cost=_build_cost_ivf_pq,
     description="IVF + product quantization (ADC lookup scan)",
@@ -614,6 +676,7 @@ REGISTRY.register(IndexFamily(
         Param("reorder_k", "grid", choices=(32, 64, 128, 256, 512), default=64),
     ),
     build=build_scann, search=_search_scann,
+    shared_arrays=("scale",), supports_frozen=True,
     chunk_cost=_chunk_cost_scann, build_cost=_build_cost_sq,
     description="IVF + int8 quantized scan + exact re-ranking",
 ))

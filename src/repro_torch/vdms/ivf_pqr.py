@@ -39,10 +39,10 @@ from .indexes import (
 from .registry import REGISTRY, IndexFamily, register_family
 
 
-def build_ivf_pqr(draws, segs, gids, params, sys) -> IndexBundle:
-    """The IVF_PQ bundle (codes + shared codebooks) plus the raw vectors the
-    re-rank stage scores against."""
-    base = build_ivf_pq(draws, segs, gids, params, sys)
+def build_ivf_pqr(draws, segs, gids, params, sys, frozen=None) -> IndexBundle:
+    """The IVF_PQ bundle (codes + shared codebooks, frozen-calibration reuse
+    included) plus the raw vectors the re-rank stage scores against."""
+    base = build_ivf_pq(draws, segs, gids, params, sys, frozen=frozen)
     arrays = dict(base.arrays)
     arrays["data"] = _storage(segs, sys["storage_bf16"])
     static = dict(base.static)
@@ -94,7 +94,9 @@ FAMILY = IndexFamily(
     ),
     build=build_ivf_pqr,
     search=search_ivf_pqr,
+    shared_arrays=("codebooks",),
     fused_search=fused_search_ivf_pqr,
+    supports_frozen=True,
     chunk_cost=_chunk_cost_ivf_pqr,
     build_cost=_build_cost_ivf_pq,  # the re-rank stores raw vectors; build cost is PQ's
     description="DiskANN-style IVF: PQ candidate scan + exact re-rank (reorder_k)",

@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 from ..core.space import Param, SearchSpace
 
-#: build(draws, segs, gids, params, sys) -> IndexBundle
+#: build(draws, segs, gids, params, sys[, frozen=]) -> IndexBundle
 BuildFn = Callable[..., Any]
 #: search(q, arrays, *, k_seg, **static) -> (ids, sims), each (n_seg, B, k_seg)
 SearchFn = Callable[..., Tuple[Any, Any]]
@@ -37,7 +37,7 @@ ChunkCostFn = Callable[[Dict[str, Any], Dict[str, Any], int, int, int], Tuple[fl
 #: build_cost(config, seg_size, dim, first_build) -> flops beyond the storage pass
 BuildCostFn = Callable[[Dict[str, Any], int, int, bool], float]
 #: fused_search(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False,
-#:              **static) -> (B, topk) global ids
+#:              alive=None, **static) -> (B, topk) global ids
 FusedSearchFn = Callable[..., Any]
 
 
@@ -47,11 +47,20 @@ class IndexFamily:
 
     ``build`` takes ``(draws, segs, gids, params, sys)`` (``draws`` the
     build's source of random draws, a ``repro_torch.vdms.draws.BuildDraws``
-    by default) and returns an
+    by default), and ``frozen=`` as well when the family
+    ``supports_frozen``; it returns an
     ``IndexBundle`` whose ``kind`` equals :attr:`name`, or :attr:`builds_kind`
     when the family delegates to another family's bundle layout, like
     AUTOINDEX building IVF_FLAT bundles. ``search`` receives the bundle's
     arrays and statics as keyword arguments.
+
+    ``shared_arrays`` names the bundle arrays that hold segment-shared
+    calibration state (quantizer scales, PQ codebooks): ``frozen_state``
+    extracts exactly these, incremental builds re-inject them through
+    ``frozen=``, and the bundle lifecycle ops never concatenate them.
+    ``supports_frozen`` says the build honours ``frozen=``;
+    ``supports_incremental`` says a live instance may seal one segment at a
+    time with it.
 
     ``chunk_cost`` / ``build_cost`` back the engine's deterministic analytic
     mode; without them analytic search cost falls back to an exhaustive-scan
@@ -67,7 +76,10 @@ class IndexFamily:
     params: Tuple[Param, ...]
     build: BuildFn
     search: SearchFn
+    shared_arrays: Tuple[str, ...] = ()
     fused_search: Optional[FusedSearchFn] = None
+    supports_frozen: bool = False
+    supports_incremental: bool = True
     builds_kind: Optional[str] = None  # bundle kind produced by build (default: name)
     chunk_cost: Optional[ChunkCostFn] = None
     build_cost: Optional[BuildCostFn] = None
@@ -82,6 +94,12 @@ class IndexFamily:
         for p in self.params:
             if not isinstance(p, Param):
                 raise TypeError(f"{self.name}: params must be Param specs, got {p!r}")
+        object.__setattr__(self, "shared_arrays", tuple(self.shared_arrays))
+        if self.supports_frozen and not self.shared_arrays:
+            raise ValueError(
+                f"{self.name}: supports_frozen=True requires shared_arrays naming "
+                "the calibration state to freeze"
+            )
         if self.fused_search is not None and not callable(self.fused_search):
             raise TypeError(f"{self.name}: fused_search must be callable or None")
 
@@ -239,3 +257,38 @@ def make_space(include: Optional[Sequence[str]] = None) -> SearchSpace:
         if not families:
             raise ValueError("include= selected no families")
     return SearchSpace.from_families(families, SYSTEM_PARAMS)
+
+
+# ---------------------------------------------------------------------------
+# documentation
+# ---------------------------------------------------------------------------
+def registry_table(families: Optional[Sequence[IndexFamily]] = None) -> str:
+    """Markdown table of families (name -> params -> capabilities)."""
+    families = tuple(families) if families is not None else registered_families()
+    rows = [
+        "| Family | Index params (default) | Frozen calibration | Incremental |",
+        "|---|---|---|---|",
+    ]
+    for f in families:
+        params = ", ".join(f"`{p.name}`={p.default}" for p in f.params) or "—"
+        frozen = ", ".join(f"`{a}`" for a in f.shared_arrays) if f.supports_frozen else "—"
+        incr = "yes" if f.supports_incremental else "no"
+        rows.append(f"| `{f.name}` | {params} | {frozen} | {incr} |")
+    return "\n".join(rows)
+
+
+def fused_pipeline_table(families: Optional[Sequence[IndexFamily]] = None) -> str:
+    """Markdown table of per-family search pipelines (fused vs composed);
+    ``Fused stages`` comes from the hook's ``stages`` attribute."""
+    families = tuple(families) if families is not None else registered_families()
+    rows = [
+        "| Family | Search pipeline | Fused stages | Frozen calibration |",
+        "|---|---|---|---|",
+    ]
+    for f in families:
+        fused = f.fused_search is not None
+        pipe = "fused (composed fallback)" if fused else "composed"
+        stages = getattr(f.fused_search, "stages", "—") if fused else "—"
+        frozen = ", ".join(f"`{a}`" for a in f.shared_arrays) if f.supports_frozen else "—"
+        rows.append(f"| `{f.name}` | {pipe} | {stages} | {frozen} |")
+    return "\n".join(rows)

@@ -60,6 +60,16 @@ def plan_segments(
     )
 
 
+def live_seg_size(segment_max_size: int, seal_proportion: float) -> int:
+    """Sealed-segment size under *streaming* ingestion: a growing segment
+    seals (and gets its own index build) the moment it crosses
+    ``seal_proportion * segment_max_size``, the live counterpart of the
+    static plan's trailing-remainder rule. Clamped to >= 64 like the static
+    plan, so degenerate configurations cannot make per-vector segments."""
+    s = max(int(segment_max_size), 64)
+    return int(min(max(int(np.ceil(float(seal_proportion) * s)), 64), s))
+
+
 def stack_sealed(data: np.ndarray, plan: SegmentPlan) -> tuple[np.ndarray, np.ndarray]:
     """Pack sealed vectors into (n_sealed, S, d) with -1-id padding.
 

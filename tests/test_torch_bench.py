@@ -26,6 +26,7 @@ from repro_torch.bench import (
     bench_efficiency,
     bench_overhead,
     bench_preference,
+    bench_streaming,
     common,
 )
 from repro_torch.bench import run as bench_run
@@ -265,6 +266,98 @@ def test_ablation_suite_matches_reference(both_tiny):
         assert g["abandoned"] == w["abandoned"], name
         assert g["score_log_len"] == w["score_log_len"], name
         assert g["session"]["totals"]["n_evals"] == w["session"]["totals"]["n_evals"], name
+
+
+def test_run_batched_matches_reference(both_tiny, monkeypatch):
+    """The batched-tuning axis at q = 1 and 4 in both packages: the same
+    rounds and evaluation counts and the same front's hypervolume."""
+    monkeypatch.setattr(bench_efficiency, "make_env", _reference_draws_env)
+    want = j_efficiency.run_batched(batch_sizes=(1, 4), n_iters=N_COMPARE)
+    got = bench_efficiency.run_batched(batch_sizes=(1, 4), n_iters=N_COMPARE, device="cpu")
+    assert set(got) == set(want) == {"1", "4"}
+    for q in ("1", "4"):
+        g, w = got[q], want[q]
+        assert set(g) == set(w)
+        assert (g["q"], g["n_iters"], g["n_evals"]) == (w["q"], w["n_iters"], w["n_evals"])
+        assert g["hv_norm"] == w["hv_norm"], q
+        assert g["session"]["totals"]["n_rounds"] == w["session"]["totals"]["n_rounds"], q
+        assert [(r["n_asked"], [e["failed"] for e in r["evals"]]) for r in g["session"]["rounds"]] \
+            == [(r["n_asked"], [e["failed"] for e in r["evals"]]) for r in w["session"]["rounds"]], q
+
+
+def test_batched_axis_cli(tiny, tmp_path, capsys):
+    path = tmp_path / "batched.json"
+    assert bench_efficiency.main(["--device", "cpu", "--batch-sizes", "1", "2", "--iters", "9",
+                                  "--json", str(path)]) == 0
+    assert "q=2: wall=" in capsys.readouterr().out
+    assert set(json.loads(path.read_text())) == {"1", "2"}
+    with pytest.raises(SystemExit):
+        bench_efficiency.main(["--device", "cpu", "--check-speedup"])
+
+
+def _reference_draws_env(*args, **kw):
+    env = common.make_env(*args, **kw)
+    env.draws = ReferenceDraws
+    return env
+
+
+# ---------------------------------------------------------------------------
+# the streaming suite against the reference's
+# ---------------------------------------------------------------------------
+STREAMING_SIZES = dict(n_base=600, n_ops=240, n_phases=2, n_init=8, n_retune=4, front_n=3)
+
+
+def test_streaming_suite_matches_reference(monkeypatch, jax_builtins_only):
+    """``run(quick=True)`` of both packages on one schedule at a reduced trace
+    (the suite's own sizes are a CPU-minute each); the port's environments
+    build with the reference's draws."""
+    for mod in (bench_streaming, j_streaming):
+        monkeypatch.setattr(mod, "_sizes", lambda quick: dict(STREAMING_SIZES))
+    make_env = bench_streaming._make_env
+
+    def env_with_reference_draws(*args):
+        env = make_env(*args)
+        env.draws = ReferenceDraws
+        return env
+
+    monkeypatch.setattr(bench_streaming, "_make_env", env_with_reference_draws)
+    want = j_streaming.run(quick=True, schedules=("step",))["step"]
+    got = bench_streaming.run(quick=True, schedules=("step",), device="cpu")["step"]
+    assert set(got) == set(want)
+    assert (got["trace"], got["n_phases"]) == (want["trace"], want["n_phases"])
+    for arm in ("frozen", "retuned"):
+        assert set(got[arm]) == set(want[arm]), arm
+        assert got[arm]["n_evals"] == want[arm]["n_evals"], arm
+        np.testing.assert_allclose(got[arm]["phase_hv"], want[arm]["phase_hv"], rtol=1e-6)
+        np.testing.assert_allclose(np.asarray(got[arm]["points"], dtype=object).tolist(),
+                                   want[arm]["points"], rtol=1e-6)
+    assert got["retuned"]["drift_fired"] == want["retuned"]["drift_fired"]
+    assert got["retuned"]["n_retunes"] == want["retuned"]["n_retunes"]
+
+
+def test_streaming_invariants_match_reference():
+    failures, summary = bench_streaming.check_invariants(device="cpu")
+    j_failures, j_summary = j_streaming.check_invariants()
+    assert failures == j_failures == []
+    assert summary["stats"]["n_seals"] >= 1
+    for key in ("n_seals", "n_compactions", "n_sealed", "n_alive", "tail_size"):
+        assert summary["stats"][key] == j_summary["stats"][key], key
+    # the default build draws differ from JAX's, so IVF_FLAT's recall and
+    # speed are close, not equal
+    assert summary["recall"] == pytest.approx(j_summary["recall"], abs=0.05)
+    assert summary["qps"] == pytest.approx(j_summary["qps"], rel=1e-6)  # the analytic model
+
+
+def test_streaming_cli(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(bench_streaming, "_sizes", lambda quick: dict(STREAMING_SIZES))
+    path = tmp_path / "streaming.json"
+    assert bench_streaming.main(["--device", "cpu", "--quick", "--check-invariants",
+                                 "--schedules", "step", "--index-types", "FLAT,IVF_PQR",
+                                 "--json", str(path)]) == 0
+    out = json.loads(path.read_text())
+    assert out["invariants"]["ok"] and set(out["schedules"]) == {"step"}
+    assert "invariants replay: qps=" in capsys.readouterr().out
+    assert registered_names() == SEVEN  # IVF_PQR's registration was scoped to the run
 
 
 # ---------------------------------------------------------------------------

@@ -488,3 +488,33 @@ def test_baseline_runs_in_wall_mode_on_card(dev, name):
     assert session.ledger_dict()["totals"]["n_evals"] == len(tuner.history)
     if name in ("ottertune", "qehvi"):
         assert tuner.device.type == "cuda"
+
+
+@pytest.mark.parametrize("index_type", ["FLAT", "IVF_SQ8", "IVF_PQ"])
+def test_live_replay_runs_kernels_on_card(dev, index_type):
+    """A delete-heavy replay in wall mode on the card: the family's kernel
+    launches on the live path, segments are compacted (``-1`` rows that the
+    kernels score with ``mask_dead=False``), and the final live state
+    answers with the composed pipeline's result sets."""
+    from repro_torch.vdms import make_space, make_trace, replay_trace, set_search_pipeline
+
+    trace = make_trace("glove_like", n_base=2048, n_ops=2048, mix=(0.3, 0.3, 0.4), dim=100,
+                       seed=1)
+    cfg = dict(make_space().default_config(index_type), segment_max_size=256,
+               seal_proportion=1.0, nlist=16)
+    name = {"FLAT": "distance", "IVF_SQ8": "fused_ivf_sq8_topk",
+            "IVF_PQ": "fused_ivf_pq_topk"}[index_type]
+    before = ops.launch_counts()[name]
+    result, live = replay_trace(trace, cfg, mode="wall", with_live=True, device=dev)
+    assert ops.launch_counts()[name] > before
+    assert result["n_compactions"] > 0 and 0.0 < result["recall"] <= 1.0
+    assert bool((live.bundle.arrays["gids"] < 0).any())
+    out = {}
+    for mode in ("composed", "fused"):
+        set_search_pipeline(mode)
+        out[mode] = live.search(trace.queries[:64], 10, mode="wall")[0]
+    set_search_pipeline("fused")
+    alive = live.alive
+    for a, b in zip(out["composed"], out["fused"]):
+        assert set(a[a >= 0]) == set(b[b >= 0])
+        assert alive[b[b >= 0]].all()

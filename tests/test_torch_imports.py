@@ -33,6 +33,10 @@ TUNING_STACK = {
     "repro_torch.core.baselines": "ALL_BASELINES",
     "repro_torch.vdms.draws": "BuildDraws",
     "repro_torch.vdms.registry": "register_family",
+    "repro_torch.vdms.engine": "LiveVDMS",
+    "repro_torch.vdms.workload": "replay_trace",
+    "repro_torch.vdms.tuning_env": "VDMSTuningEnv",
+    "repro_torch.bench.bench_streaming": "check_invariants",
     "repro_torch.bench.common": "run_method",
     "repro_torch.bench.bench_autoconfig": "run",
     "repro_torch.bench.bench_efficiency": "run",

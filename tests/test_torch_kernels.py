@@ -194,6 +194,27 @@ def test_topk_by_score_ties_match_lax(k):
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [3, 20, 40])
+def test_topk_stable_orders_signed_zeros_like_lax(k, dtype):
+    """lax.top_k (and the CUDA kernels' rank_key) rank +0.0 above -0.0;
+    a plain float sort takes them as equal."""
+    import jax
+
+    rng = np.random.default_rng(k)
+    x = rng.integers(-1, 2, (5, 40)).astype(np.float32)
+    x[(x == 0) & (rng.random(x.shape) < 0.5)] = -0.0
+    x[rng.random(x.shape) < 0.1] = -np.inf
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    want_s, want_i = jax.lax.top_k(xj, k)
+    got_s, got_i = ops.topk_stable(torch.from_numpy(x).to(getattr(torch, dtype)), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    got_s = got_s.float().numpy()
+    want_s = np.asarray(want_s.astype(jnp.float32))
+    np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(np.signbit(got_s), np.signbit(want_s))
+
+
 def test_topk_stable_rejects_k_beyond_width():
     with pytest.raises(ValueError):
         ops.topk_stable(torch.zeros(2, 3), 4)

@@ -161,3 +161,29 @@ def test_errors_match_reference():
                                       builds_kind="NOPE"))
     assert got == want
     assert registered_names() == SEVEN
+
+
+@pytest.mark.parametrize("with_pqr", [False, True], ids=["seven", "with-IVF_PQR"])
+def test_capability_tables_match_reference(with_pqr):
+    from repro_torch.vdms import fused_pipeline_table, registry_table
+
+    if with_pqr:
+        jpqr.register()
+        ivf_pqr.register()
+    assert registry_table() == jreg.registry_table()
+    assert fused_pipeline_table() == jreg.fused_pipeline_table()
+    for fam in registered_families():
+        ref = jreg.get_family(fam.name)
+        assert (fam.shared_arrays, fam.supports_frozen, fam.supports_incremental) == \
+            (ref.shared_arrays, ref.supports_frozen, ref.supports_incremental), fam.name
+
+
+def test_frozen_without_shared_arrays_errors_like_reference():
+    import dataclasses
+
+    with pytest.raises(ValueError) as want:
+        dataclasses.replace(jreg.get_family("FLAT"), name="F2", supports_frozen=True)
+    with pytest.raises(ValueError) as got:
+        dataclasses.replace(get_family("FLAT"), name="F2", supports_frozen=True)
+    assert str(got.value) == str(want.value)
+    assert dataclasses.replace(TOY, shared_arrays=["data"]).shared_arrays == ("data",)

@@ -55,8 +55,10 @@ def test_tuning_env_build_timeout_is_a_tuning_failure():
 
 
 def test_tuning_env_rejects_unported_workloads():
-    # static only: the streaming workload's trace= / workload= are not ported
-    with pytest.raises(TypeError, match="workload"):
+    # fault injection (faults=) is not ported; the streaming workload is
+    with pytest.raises(NotImplementedError, match="faults"):
+        VDMSTuningEnv(port_dataset(), device="cpu", faults=object())
+    with pytest.raises(ValueError, match="trace="):
         VDMSTuningEnv(port_dataset(), device="cpu", workload="streaming")
 
 

@@ -101,13 +101,19 @@ class ReferenceDraws:
     interface: the coarse k-means keys ``split(PRNGKey(seed), n_seg)``, the
     codebook keys ``split(fold_in(PRNGKey(seed), 7), m)``, each drawing
     ``choice(..., replace=False)`` as ``repro.vdms.kmeans`` does, and the
-    HNSW shortcuts ``randint(PRNGKey(s * 7 + m_links), ...)``."""
+    HNSW shortcuts ``randint(PRNGKey(s * 7 + m_links), ...)``. ``fold``
+    gives a live build's draws, keyed ``fold_in(PRNGKey(seed), salt)`` as
+    ``LiveVDMS`` keys them."""
 
-    def __init__(self, seed, device):
+    def __init__(self, seed, device, key=None):
         import jax
 
         self.jax = jax
-        self.key = jax.random.PRNGKey(seed)
+        self.device = device
+        self.key = jax.random.PRNGKey(seed) if key is None else key
+
+    def fold(self, salt):
+        return ReferenceDraws(None, self.device, key=self.jax.random.fold_in(self.key, salt))
 
     def _choice(self, keys, n, k):
         def choice(key):
