@@ -7,6 +7,8 @@ CSV.
     Fig. 13    -> bench_costaware      Table VI  -> bench_overhead
     kernels                            -> bench_kernels
     streaming drift re-tuning          -> bench_streaming
+    serving control plane under drift  -> bench_serving
+    guarded serving under faults       -> bench_chaos
 
 REPRO_BENCH_FULL=1 scales to paper-size runs (200 observations, wall-clock
 QPS at 32k vectors on the card; the streaming suite's full trace sizes);
@@ -27,8 +29,8 @@ from .common import FULL, N_ITERS
 
 def main(argv=None) -> None:
     from . import (
-        bench_ablation, bench_autoconfig, bench_costaware, bench_efficiency,
-        bench_kernels, bench_overhead, bench_preference, bench_streaming,
+        bench_ablation, bench_autoconfig, bench_chaos, bench_costaware, bench_efficiency,
+        bench_kernels, bench_overhead, bench_preference, bench_serving, bench_streaming,
     )
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -60,6 +62,8 @@ def main(argv=None) -> None:
         ("overhead(TabVI)", bench_overhead.run, tuning),
         ("streaming(drift)", bench_streaming.run, {"quick": not FULL, "index_types": index_types,
                                                    "device": args.device}),
+        ("serving(control plane)", bench_serving.run, {"quick": not FULL, "device": args.device}),
+        ("chaos(faults)", bench_chaos.run, {"quick": not FULL, "device": args.device}),
     ]
     failures = 0
     for name, fn, kw in suites:

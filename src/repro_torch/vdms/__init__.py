@@ -20,6 +20,17 @@ from .engine import (
     measure_batch,
     set_search_pipeline,
 )
+from .faults import (
+    BuildCrashFault,
+    FaultError,
+    FaultEvent,
+    FaultInjector,
+    FaultPlan,
+    ShadowBuildOOM,
+    TransientEngineFault,
+    canned_fault_plans,
+    classify_eval_error,
+)
 from .indexes import (
     IndexBundle,
     build_index,
@@ -42,7 +53,7 @@ from .registry import (
     unregister_family,
 )
 from .segments import SegmentPlan, live_seg_size, plan_segments, stack_sealed
-from .tuning_env import VDMSTuningEnv, classify_eval_error, make_space
+from .tuning_env import VDMSTuningEnv, make_space
 from .workload import (
     DRIFT_SCHEDULES,
     WorkloadTrace,
@@ -55,10 +66,12 @@ from .workload import (
 )
 
 __all__ = [
-    "BuildDraws", "DRIFT_SCHEDULES", "IndexBundle", "IndexFamily", "LiveVDMS", "SegmentPlan",
-    "VDMSInstance", "VDMSTuningEnv", "VectorDataset", "WorkloadTrace",
-    "analytic_build_seconds", "analytic_chunk_seconds", "batch_signature", "blend_vectors",
-    "build_index", "bundle_from_numpy", "classify_eval_error", "concat_bundles",
+    "BuildCrashFault", "BuildDraws", "DRIFT_SCHEDULES", "FaultError", "FaultEvent",
+    "FaultInjector", "FaultPlan", "IndexBundle", "IndexFamily", "LiveVDMS", "SegmentPlan",
+    "ShadowBuildOOM", "TransientEngineFault", "VDMSInstance", "VDMSTuningEnv", "VectorDataset",
+    "WorkloadTrace", "analytic_build_seconds", "analytic_chunk_seconds", "batch_signature",
+    "blend_vectors", "build_index", "bundle_from_numpy", "canned_fault_plans",
+    "classify_eval_error", "concat_bundles",
     "dataset_names", "exact_topk", "exact_topk_masked", "frozen_state",
     "fused_pipeline_table", "get_family", "get_search_pipeline", "live_seg_size",
     "make_dataset", "make_query_streams", "make_space", "make_trace", "measure_batch",

@@ -25,6 +25,7 @@ from ..device import resolve_device, sync
 from ..kernels.ref import topk_stable
 from .datasets import VectorDataset, recall_at_k
 from .draws import BuildDraws
+from .faults import HEALTH_CODE, BuildCrashFault, FaultInjector, TransientEngineFault
 from .indexes import (IndexBundle, build_index, concat_bundles, frozen_state, replace_segment,
                       search_index)
 from .merge import merge_topk
@@ -330,9 +331,13 @@ class LiveVDMS:
     ``capacity + 1`` alive mask and the padded visible tail, timed in
     ``upload_s`` (apart from the search's own time, as in the JAX package).
 
-    Fault injection (``arm_faults``, quarantine, degraded coverage, seal
-    retries) is not ported: the instance is the JAX package's unarmed one,
-    so ``last_coverage`` stays 1.0 and its fault counters 0.
+    Fault injection (``arm_faults``) drives a fault clock that ticks once
+    per ``insert``, ``delete`` and ``search``: a lost or corrupt sealed
+    segment is quarantined (searches serve the rest, with its rows cleared
+    from the uploaded alive mask, and report ``last_coverage``) and rebuilt
+    from the vector store with the same draws, bit for bit; a crashed seal
+    retries with backoff. Every branch is gated on ``self._faults is not
+    None``, so an unarmed engine behaves as if faults did not exist.
     """
 
     def __init__(self, config: Dict[str, Any], dim: int, capacity: int, seed: int = 0,
@@ -389,7 +394,20 @@ class LiveVDMS:
         self.queries_served = 0
         self.last_latencies: np.ndarray = np.empty(0, np.float64)
         self.search_hooks: List[Callable[[int, np.ndarray, float], None]] = []
+        # fault injection and degraded mode, inert until ``arm_faults``
+        self._faults: Optional[FaultInjector] = None
+        # sealed segment -> repair state while quarantined
+        self.quarantined: Dict[int, Dict[str, Any]] = {}
+        # per-sealed-segment build provenance ({"salt", "first"}): a
+        # quarantined segment's rebuild replays the same draws and the same
+        # frozen-calibration choice, so it rebuilds bit for bit
+        self._seg_meta: List[Dict[str, Any]] = []
+        self._pending_seal: Optional[Dict[str, int]] = None  # crashed-seal backoff
         self.last_coverage = 1.0  # visible fraction served by the last search
+        self.n_quarantines = 0
+        self.n_rebuilds = 0
+        self.n_rebuild_failures = 0  # rebuilds whose retry budget ran out
+        self.n_seal_retries = 0  # crashed incremental builds (seal / compaction)
 
     # --- state views ---------------------------------------------------
     @property
@@ -404,15 +422,22 @@ class LiveVDMS:
         """Sorted global ids of every alive vector (sealed + whole tail)."""
         return np.flatnonzero(self.alive[: self.capacity]).astype(np.int32)
 
-    def searchable_ids(self) -> np.ndarray:
-        """Sorted gids a search can return right now: alive and not hidden
-        behind the graceful-time consistency window."""
+    def searchable_mask(self) -> np.ndarray:
+        """``(capacity,)`` bool, True for the gids a search can return right
+        now: alive, not in a quarantined segment, and not hidden behind the
+        graceful-time consistency window (the visible set degraded-mode
+        recall is scored against)."""
         mask = self.alive[: self.capacity].copy()
         m = int(np.ceil((1.0 - self.graceful) * len(self.tail)))
         hidden = np.asarray(self.tail[m:], np.int32)
         if hidden.size:
             mask[hidden] = False
-        return np.flatnonzero(mask).astype(np.int32)
+        mask[self._quarantined_gids()] = False
+        return mask
+
+    def searchable_ids(self) -> np.ndarray:
+        """Sorted gids of :meth:`searchable_mask`."""
+        return np.flatnonzero(self.searchable_mask()).astype(np.int32)
 
     def memory_gib(self) -> float:
         b = len(self.tail) * self.dim * 4
@@ -422,9 +447,9 @@ class LiveVDMS:
 
     def stats(self) -> Dict[str, float]:
         """One structured snapshot of the lifecycle state, plain Python
-        ints/floats (JSON-safe); the JAX package's keys, whose fault
-        telemetry is that of an engine no fault was armed on, plus
-        ``upload_s``."""
+        ints/floats (JSON-safe): the JAX package's keys, the fault and
+        degraded-mode telemetry included (all zero while no plan was ever
+        armed), plus ``upload_s``."""
         n_total = int(self.n_total)
         n_alive = self.n_alive
         return {
@@ -446,13 +471,13 @@ class LiveVDMS:
             "mem_gib": float(self.memory_gib()),
             "queries_served": int(self.queries_served),
             "coverage": float(self.last_coverage),
-            "quarantined_segments": 0,
-            "n_quarantines": 0,
-            "n_rebuilds": 0,
-            "n_rebuild_failures": 0,
-            "n_seal_retries": 0,
-            "n_faults_injected": 0,
-            "health_code": 0,  # healthy
+            "quarantined_segments": len(self.quarantined),
+            "n_quarantines": int(self.n_quarantines),
+            "n_rebuilds": int(self.n_rebuilds),
+            "n_rebuild_failures": int(self.n_rebuild_failures),
+            "n_seal_retries": int(self.n_seal_retries),
+            "n_faults_injected": int(self._faults.n_injected if self._faults else 0),
+            "health_code": HEALTH_CODE[self.health()],
         }
 
     # --- ingestion -----------------------------------------------------
@@ -460,6 +485,10 @@ class LiveVDMS:
         """Bulk-load the pre-replay corpus (sealing as segments fill); the
         time spent is the initial ``build_time``, not replay-time ingest
         overhead, so the seal counters reset afterwards."""
+        if self._faults is not None:
+            # a shadow-scoped injector fails its bootstrap ordinal (an
+            # injected out-of-memory) before any vector lands
+            self._faults.on_bootstrap(int(np.asarray(base).shape[0]))
         t0 = time.perf_counter()
         self.insert(base)
         self.build_time += time.perf_counter() - t0
@@ -470,6 +499,8 @@ class LiveVDMS:
     def insert(self, vecs: np.ndarray) -> np.ndarray:
         """Append vectors (d,) or (n, d); seals segments as the tail fills.
         Returns the assigned global ids."""
+        if self._faults is not None:
+            self._fault_tick()
         vecs = np.asarray(vecs, np.float32)
         if vecs.ndim == 1:
             vecs = vecs[None]
@@ -482,53 +513,94 @@ class LiveVDMS:
         self.n_total += n
         self.tail.extend(gids.tolist())
         while len(self.tail) >= self.seg_size:
-            self._seal()
+            if self._pending_seal is not None:
+                break  # a crashed seal is backing off: the fault clock retries it
+            if not self._try_seal():
+                break
         return gids
 
-    def _build_one(self, ids_row: np.ndarray) -> IndexBundle:
-        """Incremental index build of one packed segment (gid -1 = padding),
-        with the draws of ``salt = n_seals + n_compactions``."""
+    def _build_one(self, ids_row: np.ndarray, salt: Optional[int] = None,
+                   use_frozen: Optional[bool] = None, context: str = "seal") -> IndexBundle:
+        """Incremental index build of one packed segment (gid -1 = padding).
+
+        ``salt`` / ``use_frozen`` default to the live counters (the draws of
+        ``salt = n_seals + n_compactions``, frozen calibration after the first
+        build); a quarantine rebuild passes the segment's recorded
+        provenance instead and replays its original build bit for bit."""
         seg = np.zeros((1, self.seg_size, self.dim), np.float32)
         valid = ids_row >= 0
         seg[0, valid] = self.store[ids_row[valid]]
-        first = self._frozen is None
+        if salt is None:
+            salt = self.n_seals + self.n_compactions
+        first = (self._frozen is None) if use_frozen is None else (not use_frozen)
         self.seal_build_model_s += analytic_build_seconds(
             self.config["index_type"], self.config, self.seg_size, self.dim, first
         )
+        if self._faults is not None:
+            # after the analytic charge: a crashed attempt still costs build time
+            self._faults.on_build(context)
         b = build_index(
-            self._draws.fold(self.n_seals + self.n_compactions),
+            self._draws.fold(salt),
             torch.from_numpy(seg).to(self.device),
             torch.from_numpy(np.ascontiguousarray(ids_row[None])).to(self.device),
-            self.config["index_type"], self.config, self._sys, frozen=self._frozen,
+            self.config["index_type"], self.config, self._sys,
+            frozen=None if first else self._frozen,
         )
         sync(self.device)
-        if first:
+        if self._frozen is None:
             self._frozen = frozen_state(b)
         return b
 
-    def _seal(self) -> None:
+    def _try_seal(self) -> bool:
+        """Seal one full tail slice. Returns False if the build crashed (the
+        tail stays whole and a backoff retry is scheduled on the fault
+        clock); raises :class:`TransientEngineFault` once the retry budget
+        is spent."""
         t0 = time.perf_counter()
         ids = np.asarray(self.tail[: self.seg_size], np.int32)
-        b = self._build_one(ids)
+        salt = self.n_seals + self.n_compactions
+        first = self._frozen is None
+        try:
+            b = self._build_one(ids, context="seal")
+        except BuildCrashFault:
+            self.seal_build_s += time.perf_counter() - t0
+            self.n_seal_retries += 1
+            attempts = 1 if self._pending_seal is None else self._pending_seal["attempts"] + 1
+            plan = self._faults.plan
+            if attempts > plan.max_seal_retries:
+                self._pending_seal = None
+                raise TransientEngineFault(
+                    f"seal crashed {attempts} times (budget {plan.max_seal_retries})"
+                ) from None
+            self._pending_seal = {
+                "attempts": attempts,
+                "next_tick": self._faults.tick + plan.backoff_base_ticks * 2 ** (attempts - 1),
+            }
+            return False
         del self.tail[: self.seg_size]
         self.bundle = b if self.bundle is None else concat_bundles(self.bundle, b)
         self.gid_seg[ids] = self.n_sealed
         self.seg_gids.append(ids)
+        self._seg_meta.append({"salt": salt, "first": first})
         self.n_seals += 1
         sync(self.device)
         self.seal_build_s += time.perf_counter() - t0
         self.seal_history.append(self.n_sealed)
+        self._pending_seal = None
+        return True
 
     def delete(self, gid: int) -> bool:
         """Tombstone one vector; compacts its sealed segment if the dead
         fraction crosses the threshold. Returns False for already-dead ids."""
+        if self._faults is not None:
+            self._fault_tick()
         gid = int(gid)
         if gid < 0 or gid >= self.n_total or not self.alive[gid]:
             return False
         self.alive[gid] = False
         self.n_deletes += 1
         z = int(self.gid_seg[gid])
-        if z >= 0:
+        if z >= 0 and z not in self.quarantined:
             row = self.seg_gids[z]
             valid = row[row >= 0]
             dead_frac = 1.0 - float(self.alive[valid].mean()) if valid.size else 1.0
@@ -543,14 +615,119 @@ class LiveVDMS:
         survivors = valid[self.alive[valid]]
         new_row = np.full(self.seg_size, -1, np.int32)
         new_row[: survivors.size] = survivors
-        b = self._build_one(new_row)
+        salt = self.n_seals + self.n_compactions
+        try:
+            b = self._build_one(new_row, context="compact")
+        except BuildCrashFault:
+            # the old index still serves (tombstones filter at the merge);
+            # the next delete past the threshold compacts again
+            self.seal_build_s += time.perf_counter() - t0
+            self.n_seal_retries += 1
+            return
         self.bundle = replace_segment(self.bundle, z, b)
         self.seg_gids[z] = new_row
+        self._seg_meta[z] = {"salt": salt, "first": False}
         self.gid_seg[survivors] = z
         self.n_compactions += 1
         sync(self.device)
         self.seal_build_s += time.perf_counter() - t0
         self.seal_history.append(self.n_sealed)
+
+    # --- fault injection and degraded mode ------------------------------
+    def arm_faults(self, injector: Optional[FaultInjector]) -> None:
+        """Install (or clear, with ``None``) the fault injector driving this
+        engine's fault clock. Arm after ``bootstrap`` so plan ticks line up
+        with replayed operations rather than bulk-load inserts."""
+        self._faults = injector
+
+    def _fault_tick(self) -> None:
+        """One step of the fault clock: apply newly due events, then service
+        scheduled repairs (crashed-seal retries, quarantine rebuilds)."""
+        for e in self._faults.advance():
+            if self.n_sealed > 0:
+                self._quarantine(e.segment % self.n_sealed, e.kind)
+        self._service_repairs()
+
+    def _quarantine(self, z: int, reason: str) -> None:
+        if z in self.quarantined:
+            return
+        self.quarantined[z] = {
+            "retries": 0,
+            "next_tick": self._faults.tick + self._faults.plan.backoff_base_ticks,
+            "reason": reason,
+            "permanent": False,
+        }
+        self.n_quarantines += 1
+
+    def _service_repairs(self) -> None:
+        inj = self._faults
+        tick, plan = inj.tick, inj.plan
+        if self._pending_seal is not None and tick >= self._pending_seal["next_tick"]:
+            while len(self.tail) >= self.seg_size:
+                if not self._try_seal():
+                    break
+        for z in sorted(self.quarantined):
+            st = self.quarantined[z]
+            if st["permanent"] or tick < st["next_tick"]:
+                continue
+            t0 = time.perf_counter()
+            meta = self._seg_meta[z]
+            try:
+                b = self._build_one(self.seg_gids[z], salt=meta["salt"],
+                                    use_frozen=not meta["first"], context="rebuild")
+            except BuildCrashFault:
+                self.seal_build_s += time.perf_counter() - t0
+                st["retries"] += 1
+                if st["retries"] >= plan.max_rebuild_retries:
+                    st["permanent"] = True  # -> health() == "degraded"
+                    self.n_rebuild_failures += 1
+                else:
+                    st["next_tick"] = tick + plan.backoff_base_ticks * 2 ** st["retries"]
+                continue
+            self.bundle = replace_segment(self.bundle, z, b)
+            del self.quarantined[z]
+            self.n_rebuilds += 1
+            # the splice's copy must not land in the next search's timed chunks
+            sync(self.device)
+            self.seal_build_s += time.perf_counter() - t0
+
+    def health(self) -> str:
+        """``healthy`` | ``rebuilding`` (repairs scheduled and within budget)
+        | ``degraded`` (some quarantined segment ran out of rebuilds)."""
+        if any(st["permanent"] for st in self.quarantined.values()):
+            return "degraded"
+        if self.quarantined or self._pending_seal is not None:
+            return "rebuilding"
+        return "healthy"
+
+    def _quarantined_gids(self) -> np.ndarray:
+        """The gids of every quarantined segment's rows (padding dropped)."""
+        rows = [self.seg_gids[z] for z in self.quarantined]
+        if not rows:
+            return np.empty(0, np.int32)
+        gids = np.concatenate(rows)
+        return gids[gids >= 0]
+
+    def _search_alive(self) -> np.ndarray:
+        """The alive mask a search hands its kernels and merge: ``alive``
+        itself, or in degraded mode a copy with the quarantined segments'
+        rows cleared (the same ``capacity + 1`` shape and sentinel)."""
+        if self._faults is None or not self.quarantined:
+            return self.alive
+        alive = self.alive.copy()
+        alive[self._quarantined_gids()] = False
+        return alive
+
+    def _coverage(self, n_vis: int) -> float:
+        """The visible fraction a search serves: 1.0 unless segments are
+        quarantined, then the alive sealed vectors outside them plus the
+        visible tail, over all alive sealed vectors plus the visible tail."""
+        if self._faults is None or not self.quarantined:
+            return 1.0
+        sealed_alive = int((self.alive[: self.capacity] & (self.gid_seg >= 0)).sum())
+        lost = int(self.alive[self._quarantined_gids()].sum())
+        total = sealed_alive + n_vis
+        return float((total - lost) / max(total, 1))
 
     # --- search --------------------------------------------------------
     def _visible_tail(self) -> np.ndarray:
@@ -567,7 +744,8 @@ class LiveVDMS:
         """What a search hands its kernels and merge, on ``device``: the
         visible tail padded to its bucket, its gids (-1 pad), the ``capacity
         + 1`` alive mask, and the visible tail's length. The upload is
-        timed into ``upload_s``."""
+        timed into ``upload_s``. In degraded mode the alive mask is
+        :meth:`_search_alive`'s masked copy."""
         vis = self._visible_tail()
         nb = _bucket(vis.size)
         growing = np.zeros((nb, self.dim), np.float32)
@@ -577,7 +755,7 @@ class LiveVDMS:
         dev = self.device
         t0 = time.perf_counter()
         growing_t, ggids_t = torch.from_numpy(growing).to(dev), torch.from_numpy(ggids).to(dev)
-        alive_t = torch.from_numpy(self.alive).to(dev)
+        alive_t = torch.from_numpy(self._search_alive()).to(dev)
         sync(dev)
         self.upload_s += time.perf_counter() - t0
         return growing_t, ggids_t, alive_t, int(vis.size)
@@ -587,12 +765,18 @@ class LiveVDMS:
         """Search the current visible state. Returns ``(global ids (Q,
         topk), elapsed seconds)``: analytic mode charges the deterministic
         cost model for the live segment state; wall mode times each chunk's
-        dispatch (query upload, search, ids back on the host)."""
+        dispatch (query upload, search, ids back on the host). An armed
+        engine first ticks its fault clock (repairs it runs are charged to
+        ``seal_build_s``, outside the timed chunks); a latency storm scales
+        the chunk seconds, never the results."""
+        if self._faults is not None:
+            self._fault_tick()
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
         b = min(self.batch, max(nq, 1))
         n_chunks = (nq + b - 1) // b
         growing_t, ggids_t, alive_t, n_vis = self.search_inputs()
+        self.last_coverage = self._coverage(n_vis)
         nb = growing_t.shape[0]
         dev = self.device
         use_fused = get_search_pipeline() == "fused"
@@ -636,6 +820,10 @@ class LiveVDMS:
                 self.n_sealed, self.seg_size, n_vis, self.dim, b,
             )
         counts = np.minimum(b, nq - b * np.arange(n_chunks))
+        if self._faults is not None:
+            mult, add = self._faults.latency_shape()
+            if mult != 1.0 or add != 0.0:
+                chunk_s = chunk_s * mult + add * counts
         elapsed = float(chunk_s.sum())
         # per-query latency: each chunk's elapsed is split over the real
         # queries it served, so latencies always sum to the elapsed time

@@ -1,8 +1,7 @@
 """The VDMS tuning environment of the port: the expensive black-box objective
 the tuners optimize over the Milvus-like search space (index type +
 per-family index parameters + 7 system parameters, paper §V-A); the
-counterpart of the JAX package's ``vdms/tuning_env.py``. Fault injection
-(``faults=``) is not ported.
+counterpart of the JAX package's ``vdms/tuning_env.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ from ..core.objectives import TuningFailure
 from ..device import resolve_device
 from .datasets import VectorDataset
 from .engine import VDMSInstance, batch_signature, measure_batch
+from .faults import FaultInjector, FaultPlan, classify_eval_error
 from .registry import make_space  # noqa: F401  (registry-derived; re-exported)
 from .workload import (
     OP_DELETE,
@@ -27,20 +27,6 @@ from .workload import (
     replay_trace,
     time_aware_ground_truth,
 )
-
-
-def classify_eval_error(e: BaseException) -> Optional[TuningFailure]:
-    """Map an evaluation-time exception to the failure taxonomy:
-    ``TuningFailure`` passes through; config-dependent numeric/shape crashes
-    (``ValueError``, ``ZeroDivisionError``, ``FloatingPointError``) and a
-    configuration that exhausts device memory become config failures;
-    anything else returns ``None`` and must be re-raised by the caller."""
-    if isinstance(e, TuningFailure):
-        return e
-    if isinstance(e, (ValueError, ZeroDivisionError, FloatingPointError,
-                      torch.cuda.OutOfMemoryError)):
-        return TuningFailure(str(e))
-    return None
 
 
 class VDMSTuningEnv:
@@ -67,6 +53,10 @@ class VDMSTuningEnv:
       recall. ``n_phases`` splits the trace into equal-op windows and
       :meth:`set_phase` moves the drifting workload forward; the cache is
       phase-keyed.
+
+    ``faults`` (streaming only) is a :class:`~.faults.FaultPlan` or a
+    :class:`~.faults.FaultInjector` armed on every replay's live instance;
+    an injected fault surfaces as a *transient* :class:`TuningFailure`.
     """
 
     def __init__(
@@ -81,7 +71,7 @@ class VDMSTuningEnv:
         trace: Optional[WorkloadTrace] = None,
         n_phases: int = 1,
         compact_threshold: float = 0.3,
-        faults=None,
+        faults: Union[FaultPlan, FaultInjector, None] = None,
         device=None,
         draws=None,
     ):
@@ -91,9 +81,8 @@ class VDMSTuningEnv:
             raise ValueError("static workload requires dataset=")
         if workload == "streaming" and trace is None:
             raise ValueError("streaming workload requires trace=")
-        if faults is not None:
-            raise NotImplementedError("fault injection (faults=) is not ported to the "
-                                      "PyTorch package yet")
+        if faults is not None and workload != "streaming":
+            raise ValueError("fault injection requires the streaming workload")
         self.dataset = dataset
         self.mode = mode
         self.seed = seed
@@ -108,6 +97,16 @@ class VDMSTuningEnv:
         self._phases = trace.split(n_phases) if workload == "streaming" else []
         self._phase_gt: List[Optional[np.ndarray]] = [None] * len(self._phases)
         self._phase = 0
+        # one persistent injector across evaluations: a fail-count schedule
+        # ("the next 2 builds crash") runs out across session retries, so a
+        # transiently faulted configuration recovers on re-evaluation.
+        # Faulted evaluations raise before caching, so a retry re-runs the
+        # replay.
+        self._fault_injector: Optional[FaultInjector] = (
+            faults
+            if faults is None or isinstance(faults, FaultInjector)
+            else FaultInjector(faults, scope="primary")
+        )
         self.cache: Dict[Tuple, Dict[str, float]] = {}
         self.failures: Dict[Tuple, Dict[str, Any]] = {}
         self.n_evals = 0
@@ -199,6 +198,7 @@ class VDMSTuningEnv:
                 phase, cfg, seed=self.seed, mode=self.mode,
                 ground_truth=self._phase_gt[self._phase],
                 compact_threshold=self.compact_threshold, device=self.device, draws=self.draws,
+                fault_injector=self._fault_injector,
             )
             if result["build_time"] + result["seal_build_s"] > self.build_timeout:
                 raise TuningFailure(f"index builds exceeded {self.build_timeout}s")

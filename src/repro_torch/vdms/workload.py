@@ -324,6 +324,7 @@ def replay_trace(
     search_hooks: Sequence[Callable] = (),
     device=None,
     draws=None,
+    fault_injector=None,
 ):
     """Replay a trace under one configuration on ``device`` (the GPU unless
     the caller passes ``device="cpu"``) and measure the paper's objectives
@@ -342,7 +343,11 @@ def replay_trace(
     instrumentation (``fn(n_queries, latencies, elapsed)``). ``draws`` is
     the class of the build draws (default ``BuildDraws``). With
     ``with_live=True`` also returns the finished :class:`LiveVDMS` as a
-    second value. The JAX package's ``fault_injector`` is not ported.
+    second value. ``fault_injector`` arms a
+    :class:`~repro_torch.vdms.faults.FaultInjector` on the live instance
+    *after* bootstrap (the fault clock ticks over replayed ops, not bulk-load
+    inserts); the result then also reports ``coverage_min``,
+    ``n_quarantines`` and ``n_rebuilds``, keys absent without an injector.
     """
     device = resolve_device(device)
     k = topk or trace.k
@@ -351,6 +356,9 @@ def replay_trace(
                     compact_threshold=compact_threshold, device=device, draws=draws)
     live.search_hooks.extend(search_hooks)
     live.bootstrap(trace.base)
+    if fault_injector is not None:
+        live.arm_faults(fault_injector)
+    coverage_min = 1.0
     preds = -np.ones((trace.n_searches, k), np.int32)
     lat_all: List[np.ndarray] = []
     search_s = 0.0
@@ -358,7 +366,7 @@ def replay_trace(
     pending: List[int] = []
 
     def flush():
-        nonlocal search_s
+        nonlocal search_s, coverage_min
         if not pending:
             return
         rows = np.asarray(pending, np.int64)
@@ -366,6 +374,7 @@ def replay_trace(
         preds[rows] = ids
         lat_all.append(live.last_latencies)
         search_s += secs
+        coverage_min = min(coverage_min, live.last_coverage)
         pending.clear()
 
     for i in range(trace.n_ops):
@@ -408,6 +417,10 @@ def replay_trace(
         "lat_p99_s": float(p99),
         "upload_s": float(stats["upload_s"]),
     }
+    if fault_injector is not None:
+        result["coverage_min"] = float(coverage_min)
+        result["n_quarantines"] = float(stats["n_quarantines"])
+        result["n_rebuilds"] = float(stats["n_rebuilds"])
     return (result, live) if with_live else result
 
 

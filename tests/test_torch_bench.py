@@ -14,18 +14,22 @@ import torch
 import repro.core as jc
 from benchmarks import bench_ablation as j_ablation
 from benchmarks import bench_autoconfig as j_autoconfig
+from benchmarks import bench_chaos as j_chaos
 from benchmarks import bench_efficiency as j_efficiency
 from benchmarks import bench_preference as j_preference
+from benchmarks import bench_serving as j_serving
 from benchmarks import bench_streaming as j_streaming
 from benchmarks import common as j_common
 from repro_torch import core as tc
 from repro_torch.bench import (
     bench_ablation,
     bench_autoconfig,
+    bench_chaos,
     bench_costaware,
     bench_efficiency,
     bench_overhead,
     bench_preference,
+    bench_serving,
     bench_streaming,
     common,
 )
@@ -358,6 +362,58 @@ def test_streaming_cli(tmp_path, capsys, monkeypatch):
     assert out["invariants"]["ok"] and set(out["schedules"]) == {"step"}
     assert "invariants replay: qps=" in capsys.readouterr().out
     assert registered_names() == SEVEN  # IVF_PQR's registration was scoped to the run
+
+
+# ---------------------------------------------------------------------------
+# the serving and chaos suites at their quick sizes
+# ---------------------------------------------------------------------------
+def test_serving_suite_cli(tmp_path, capsys):
+    path, ledger = tmp_path / "serving.json", tmp_path / "ledger.json"
+    assert bench_serving.main(["--device", "cpu", "--quick", "--check-improvement",
+                               "--json", str(path), "--ledger-json", str(ledger)]) == 0
+    out = json.loads(path.read_text())
+    assert set(out["schedules"]) == {"step", "ramp"}
+    assert set(json.loads(ledger.read_text())) == {"step", "ramp"}
+    assert "step: frozen viol_min=" in capsys.readouterr().out
+
+
+def test_chaos_suite_cli(tmp_path, capsys):
+    path = tmp_path / "chaos.json"
+    assert bench_chaos.main(["--device", "cpu", "--quick", "--check-resilience",
+                             "--json", str(path)]) == 0
+    out = json.loads(path.read_text())
+    assert len(out["cases"]) == 6 and not any(c[arm]["crashed"] for c in out["cases"]
+                                              for arm in ("guarded", "unguarded"))
+    assert "check oracle_exact: ok" in capsys.readouterr().out
+
+
+def test_chaos_suite_matches_reference():
+    """Every case of the step schedule (both arms, all three plans) reports
+    what the reference reports, the port's builds using the reference's
+    draws."""
+    want = j_chaos.run(quick=True, schedules=("step",))
+    got = bench_chaos.run(quick=True, schedules=("step",), device="cpu", draws=ReferenceDraws)
+    assert got["oracle"] == want["oracle"]
+    for g, w in zip(got["cases"], want["cases"]):
+        assert (g["schedule"], g["plan"], g["fault_plan"]) == (w["schedule"], w["plan"],
+                                                               w["fault_plan"])
+        for arm in ("unguarded", "guarded"):
+            assert set(g[arm]) == set(w[arm]), arm
+            for key, v in w[arm].items():
+                if isinstance(v, float):
+                    assert g[arm][key] == pytest.approx(v, rel=1e-9), (g["plan"], arm, key)
+                else:
+                    assert g[arm][key] == v, (g["plan"], arm, key)
+
+
+def test_serving_scale_knobs_match_reference():
+    for quick in (True, False):
+        assert bench_serving._sizes(quick) == j_serving._sizes(quick)
+        assert repr(bench_serving._controller_params(quick)) == repr(
+            j_serving._controller_params(quick))
+    assert bench_serving._incumbent_config() == j_serving._incumbent_config()
+    assert (bench_serving.MIX0, bench_serving.MIX1) == (j_serving.MIX0, j_serving.MIX1)
+    assert bench_chaos._fault_horizon(640) == j_chaos._fault_horizon(640)
 
 
 # ---------------------------------------------------------------------------

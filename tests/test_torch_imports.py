@@ -45,6 +45,15 @@ TUNING_STACK = {
     "repro_torch.bench.bench_costaware": "run",
     "repro_torch.bench.bench_overhead": "run_ask_overhead",
     "repro_torch.bench.run": "main",
+    "repro_torch.vdms.faults": "FaultInjector",
+    "repro_torch.ft.monitor": "StragglerMonitor",
+    "repro_torch.serving.metrics": "serving_ledger",
+    "repro_torch.serving.slo": "SLOMonitor",
+    "repro_torch.serving.controller": "ServingController",
+    "repro_torch.bench.bench_serving": "run_schedule",
+    "repro_torch.bench.bench_chaos": "oracle_exactness_check",
+    "repro_torch.launch.serve_chaos": "main",
+    "repro_torch.launch.serve_controlled": "main",
 }
 
 

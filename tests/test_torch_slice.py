@@ -55,9 +55,11 @@ def test_tuning_env_build_timeout_is_a_tuning_failure():
 
 
 def test_tuning_env_rejects_unported_workloads():
-    # fault injection (faults=) is not ported; the streaming workload is
-    with pytest.raises(NotImplementedError, match="faults"):
-        VDMSTuningEnv(port_dataset(), device="cpu", faults=object())
+    # fault injection (faults=) needs the streaming workload, as in the JAX package
+    from repro_torch.vdms import FaultPlan
+
+    with pytest.raises(ValueError, match="fault injection requires the streaming workload"):
+        VDMSTuningEnv(port_dataset(), device="cpu", faults=FaultPlan())
     with pytest.raises(ValueError, match="trace="):
         VDMSTuningEnv(port_dataset(), device="cpu", workload="streaming")
 
