@@ -88,7 +88,22 @@ Phases, each fatal on failure:
      (``torch.equal``). Then the guarded loop at ``bench_serving``'s full
      parameters on a 32,768-vector trace under ``latency_storm``: at least
      one retune, the first canary aborted by the shadow OOM;
- 11. a ``{"kernels": [...]}`` line, then the card line and the device line.
+ 11. sharded segment serving and fleet tuning: ``bench_sharded.run`` at its
+     full size (4,194,304 x 64 glove_like, IVF_SQ8 at nlist 64, nprobe 8,
+     segments of 4,096, batch 32) at 1, 2 and 4 shards on the card, with its
+     invariants gated (1-shard ids byte-equal to the unsharded instance,
+     equal recall and (gid, score-bit) sets at every shard count, analytic
+     1 -> 4 scaling >= 1.5) and wall QPS printed beside the analytic figure;
+     1 M live states of glove-100's width (FLAT, IVF_SQ8, IVF_PQ) with two
+     segments quarantined, snapshotted with ``ShardedVDMS.from_live`` at 1,
+     2 and 4 shards, each equal to ``live.search`` with min shard coverage
+     below 1; ``bench_fleet.run`` at its full budgets (four tenants, 16
+     observations) with its three ``--check-improvement`` gates, after a
+     GP fit repeated on the card gave the same bits; counters reset before
+     and read after, all three VDMS kernels must have launched; then the
+     fused SQ8 kernel held against its plain version on the 4 M stack at
+     the shard hook's width, and each kernel on the degraded live states;
+ 12. a ``{"kernels": [...]}`` line, then the card line and the device line.
 
 The script sets ``REPRO_BENCH_FULL=1`` in its own process before it imports
 the port (only the benchmark harness reads it).
@@ -886,22 +901,28 @@ def live_kernel(live, q):
     """The kernel call a live search of ``q`` makes (``mask_dead=False``:
     compacted segments' -1 rows are scored and take up width), with its work
     (bytes, operations) and a shape note."""
+    return stack_kernel(live.bundle.kind, live.bundle.arrays, live.bundle.static, live.k_seg, q)
+
+
+def stack_kernel(kind, a, st, k, q):
+    """The kernel call a ``kind`` stage makes over the segment stack ``a``
+    (statics ``st``, per-segment width ``k``) for queries ``q``, with
+    ``mask_dead=False``, its work (bytes, operations) and a shape note."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_scan import probe_candidates
     from repro_torch.vdms.fused import pq_lut
 
-    a, st, k = live.bundle.arrays, live.bundle.static, live.k_seg
     n_seg, s = a["gids"].shape
     b, d = q.shape
     pad = int((a["gids"] < 0).sum())
-    if live.bundle.kind == "FLAT":
+    if kind == "FLAT":
         return dict(name="distance", call=lambda impl: ops.batched_ip(q, a["data"], impl=impl),
                     library=lambda: torch.matmul(q, a["data"].transpose(1, 2)),
                     work=(nbytes(q, a["data"]) + n_seg * b * s * 4, 2.0 * b * n_seg * s * d),
                     shape=f"q {tuple(q.shape)} x {tuple(a['data'].shape)}, {pad} pad rows")
-    if live.bundle.kind == "IVF_SQ8":
+    if kind == "IVF_SQ8":
         name, fn = "fused_ivf_sq8_topk", ops.fused_ivf_sq8_topk
         args = (q, a["codes"], a["scale"], a["centroids"], a["members"], a["gids"])
     else:
@@ -960,6 +981,43 @@ def hold_live(live, queries, device, label):
     print(f"  held {case['name']} on the live {label} state ({case['shape']}): max abs err "
           f"{err:.3e}, {q.shape[0]} result sets equal after the alive-gated merge", flush=True)
     return dict(kernel=case["name"], label=label, shape=case["shape"], max_abs_err=err)
+
+
+def hold_padded(snap, queries, device, label):
+    """A sharded snapshot's kernel against its plain version on its padded
+    stack (``snap.arrays``: the tail segments are padding, zero data,
+    centroids and codes, members and gids all -1, run with
+    ``mask_dead=False``): within ``TOL`` as phase 3 holds them, the fused
+    kernels' padding slots -1 / -inf in both versions, and the family's
+    shard stage mapping no padding slot to an id."""
+    import torch
+
+    from repro_torch.vdms.sharded import _shard_stage
+
+    q = torch.from_numpy(queries).to(device)
+    case = stack_kernel(snap.kind, snap.arrays, snap.static, snap.k_seg, q)
+    got, want = case["call"](None), case["call"]("torch")
+    torch.cuda.synchronize()
+    real = snap.n_sealed  # the padding is the stack's tail
+    if case["name"] == "distance":
+        err = float((got - want).abs().max())
+        if err > TOL:
+            fail(f"distance {label}: max abs difference {err} > {TOL}")
+        if not bool((got[real:] == 0).all()):
+            fail(f"distance {label}: a zero padding row scored other than 0")
+    else:
+        err = check_topk(f"{case['name']} {label}", got, want)
+        for impl, (lids, sims) in (("kernel", got), ("plain", want)):
+            if not (bool((lids[real:] == -1).all()) and bool((sims[real:] == float("-inf")).all())):
+                fail(f"{case['name']} {label}: the {impl} version filled a padding slot")
+    ids, _ = _shard_stage(snap.kind, snap.static, snap.k_seg, snap._use_hook())(q, snap.arrays)
+    if not bool((ids[real:] == -1).all()):
+        fail(f"{case['name']} {label}: the shard stage mapped a padding slot to an id")
+    print(f"  held {case['name']} on the {label} padded stack ({case['shape']}, "
+          f"{snap.n_pad} padding segments): max abs err {err:.3e}, padding slots empty",
+          flush=True)
+    return dict(kernel=case["name"], label=label, shape=case["shape"], n_pad=snap.n_pad,
+                max_abs_err=err)
 
 
 def time_live(live, queries, device, label, batches=None):
@@ -1600,6 +1658,274 @@ def faults_phase(device):
     return out
 
 
+# the sharded-serving and fleet phase: bench_sharded at its full size, a
+# degraded 1 M live state of glove-100's width snapshotted across shards,
+# bench_fleet at its full budgets
+SHARD_LIVE = dict(n_base=1_048_576, n_ops=256, mix=(0.0, 1.0, 0.0), dim=100, seed=0)
+SHARD_LIVE_FAMILIES = ("FLAT", "IVF_SQ8", "IVF_PQ")
+SHARD_LIVE_LOST = (5, 200)  # the two quarantined segments (on shards 0 and 2 of 4)
+SHARD_KERNEL = {"FLAT": "distance", "IVF_SQ8": "fused_ivf_sq8_topk",
+                "IVF_PQ": "fused_ivf_pq_topk"}
+# one sealed segment placed on 1, 2 and 8 shards (seven padding segments at 8),
+# the CPU test's mostly-padding stack
+PAD_STACK = dict(n=1300, n_queries=16, dim=32, k=10, seed=0)
+PAD_SHARDS = (1, 2, 8)
+PAD_BASE = dict(segment_max_size=1024, seal_proportion=1.0, graceful_time=0.2,
+                search_batch_size=16, topk_merge_width=32, kmeans_iters=3, storage_bf16=False)
+PAD_CONFIGS = {"FLAT": {}, "IVF_SQ8": dict(nlist=8, nprobe=4),
+               "IVF_PQ": dict(nlist=8, nprobe=4, m=8, nbits=4)}
+
+
+def gid_score_sets(ids, scores):
+    """Per query, the set of (gid, score bits) of the live slots."""
+    return [frozenset((int(g), int(b)) for g, b in zip(ri, rb) if g >= 0)
+            for ri, rb in zip(ids, scores.view("int32"))]
+
+
+def sharded_phase(device):
+    """Phase 11: sharded segment serving and fleet tuning on the card.
+    (a) ``bench_sharded.run(quick=False)``: 4,194,304 x 64 glove_like, IVF_SQ8
+    (nlist 64, nprobe 8, segments of 4,096, batch 32) at 1, 2 and 4 shards
+    (``direct``, then ``vmap`` on the card); its invariants gated: 1-shard ids
+    byte-equal to ``VDMSInstance.search``, equal recall and (gid, score-bit)
+    sets across shard counts, analytic 1 -> 4 scaling >= 1.5, and the SQ8
+    kernel launched by each shard count's searches. (b) 1 M live states of
+    glove-100's width (FLAT, IVF_SQ8, IVF_PQ at their defaults) with two
+    segments quarantined, snapshotted by ``ShardedVDMS.from_live``: 1 shard
+    equal to ``live.search``, 2 and 4 shards equal to it, min shard coverage
+    below 1, the family's kernel launched by each snapshot's search (counts
+    set to 0 just before it, read just after), and at 2 and 4 shards the
+    kernel held against its plain version on the padded stack. A stack of
+    one sealed segment on 1, 2 and 8 shards (seven padding segments) the
+    same way, equal to the unsharded instance. (c) ``bench_fleet.run`` at
+    its full budgets, then at its quick ones, after a GP fit repeated on the
+    card gives the same bits: at both the no-source fallback equals cold
+    start and the mid-run resume is bit-identical; the warm-beats-cold gate
+    holds at the quick budgets and is printed at the full ones (where the
+    JAX package's own run fails it for keyword_like); its launches are
+    printed apart. (d) Each kernel held against its plain version at the
+    shapes the phase gave it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import bench_fleet, bench_sharded
+    from repro_torch.core.gp import GP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_scan import probe_candidates
+    from repro_torch.vdms import (FaultEvent, FaultInjector, FaultPlan, LiveVDMS, ShardedVDMS,
+                                  VDMSInstance, make_dataset, make_space, make_trace)
+
+    space = make_space()
+    out = dict(sharded={}, live=[], padded=[], fleet={}, held=[])
+    path = dict.fromkeys(KERNEL_NAMES, 0)  # launches of every sharded search window
+
+    def window(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after: (its result, the counts)."""
+        ops.reset_launch_counts()
+        r = fn()
+        counts = ops.launch_counts()
+        for name in KERNEL_NAMES:
+            path[name] += counts[name]
+        return r, counts
+
+    # (a) bench_sharded at its full size
+    t0 = time.perf_counter()
+    keep = {}
+    res = bench_sharded.run(quick=False, device=device, keep=keep)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bad = bench_sharded.check_invariants(res)
+    print(f"  {res['n_base']:,} x {res['dim']}, {res['n_sealed']} sealed segments: dataset "
+          f"{res['dataset_s']:.2f} s, build {res['build_s']:.2f} s; (a) {secs:.1f} s", flush=True)
+    n_chunks = -(-res["n_queries"] // 32)
+    for n, rec in res["shards"].items():
+        po = rec["poisson"]
+        print(f"  {n} shard(s) ({rec['dispatch']}): wall QPS {rec['qps_wall']:.1f} "
+              f"({rec['wall_s'] / n_chunks * 1e3:.3f} ms a chunk of 32), analytic QPS "
+              f"{rec['qps_analytic']:.1f} (x{rec['qps_scaling_vs_1']:.3f}), recall "
+              f"{rec['recall']:.4f}, mem {rec['mem_gib']:.3f} GiB, first search "
+              f"{rec['compile_s']:.3f} s, ids = unsharded {rec['equals_unsharded']}, sets equal "
+              f"{rec['result_sets_match']}, ids equal {rec['bitwise_identical']}; Poisson served "
+              f"{po['served_qps']:.1f} of {po['offered_qps']:.1f} QPS, p99 "
+              f"{po['sojourn_p99_s'] * 1e3:.3f} ms; launches of its searches "
+              f"{ {k: c for k, c in rec['launches'].items() if c} }", flush=True)
+        if rec["launches"]["fused_ivf_sq8_topk"] == 0:
+            fail(f"sharded: the SQ8 kernel was not launched by the {n}-shard searches")
+        for name in KERNEL_NAMES:
+            path[name] += rec["launches"][name]
+    if bad:
+        fail(f"sharded: {bad}")
+    out["sharded"] = dict(res, seconds=secs)
+
+    # (b) degraded live states, snapshotted across shards
+    t0 = time.perf_counter()
+    trace = make_trace("glove_like", **SHARD_LIVE)
+    queries = trace.queries[:256]
+    rng = np.random.default_rng(0)
+    dead = rng.choice(trace.n_base, 2048, replace=False)
+    lives = {}
+    for fam in SHARD_LIVE_FAMILIES:
+        t1 = time.perf_counter()
+        live = LiveVDMS(space.default_config(fam), trace.dim, trace.capacity, seed=0,
+                        device=device)
+        live.bootstrap(trace.base)
+        boot_s = time.perf_counter() - t1
+        live.arm_faults(FaultInjector(FaultPlan(
+            events=tuple(FaultEvent("segment_loss", at_tick=1, segment=z)
+                         for z in SHARD_LIVE_LOST),
+            backoff_base_ticks=1_000_000)))  # no rebuild inside the phase
+        want, _ = live.search(queries, 10)  # the first tick: two segments lost
+        for g in dead:
+            live.delete(int(g))
+        want, _ = live.search(queries, 10)
+        if sorted(live.quarantined) != sorted(SHARD_LIVE_LOST):
+            fail(f"sharded live {fam}: quarantined {sorted(live.quarantined)}")
+        ref = None
+        for n in bench_sharded.SHARD_COUNTS:
+            snap = ShardedVDMS.from_live(live, n_shards=n)
+            (ids, scores, _), counts = window(
+                lambda: snap.search(queries, 10, return_scores=True))
+            if counts[SHARD_KERNEL[fam]] == 0:
+                fail(f"sharded live {fam}: {SHARD_KERNEL[fam]} was not launched by the "
+                     f"{n}-shard search")
+            st = snap.stats()
+            if not np.array_equal(ids, want):
+                fail(f"sharded live {fam}: {n} shard(s) differ from live.search")
+            sets = gid_score_sets(ids, scores)
+            if ref is None:
+                ref = sets
+            elif sets != ref:
+                fail(f"sharded live {fam}: {n} shards changed the (gid, score) sets")
+            if not st["min_shard_coverage"] < 1.0:
+                fail(f"sharded live {fam}: min shard coverage {st['min_shard_coverage']}")
+            out["live"].append(dict(family=fam, n_shards=n, bootstrap_s=boot_s,
+                                    n_sealed=live.n_sealed, n_pad=snap.n_pad,
+                                    coverage=st["coverage"],
+                                    min_shard_coverage=st["min_shard_coverage"],
+                                    mean_shard_coverage=st["mean_shard_coverage"],
+                                    growing_size=st["growing_size"], dispatch=st["dispatch"],
+                                    launches=counts))
+            print(f"  live {fam} ({live.n_sealed} sealed, bootstrap {boot_s:.2f} s): {n} "
+                  f"shard(s) ({st['dispatch']}, {snap.n_pad} padding) = live.search, coverage "
+                  f"{st['coverage']:.6f}, min shard coverage {st['min_shard_coverage']:.6f}, "
+                  f"launches {counts[SHARD_KERNEL[fam]]}", flush=True)
+            if snap.n_pad:
+                out["held"].append(hold_padded(snap, queries[:32], device,
+                                               f"1 M {fam} on {n} shards"))
+            del snap
+        lives[fam] = live
+    # one sealed segment on 8 shards: the stack is mostly padding
+    ds = make_dataset("glove_like", device=device, **PAD_STACK)
+    for fam, extra in PAD_CONFIGS.items():
+        inst = VDMSInstance(ds, dict(PAD_BASE, index_type=fam, **extra), seed=0, device=device)
+        if inst.plan.n_sealed != 1:
+            fail(f"sharded padding {fam}: {inst.plan.n_sealed} sealed segments, want 1")
+        want = inst.search(ds.queries, 10)
+        for n in PAD_SHARDS:
+            snap = ShardedVDMS.from_instance(inst, n_shards=n)
+            (ids, _), counts = window(lambda: snap.search(ds.queries, 10))
+            if not np.array_equal(ids, want):
+                fail(f"sharded padding {fam}: {n} shard(s) differ from the unsharded instance")
+            if counts[SHARD_KERNEL[fam]] == 0:
+                fail(f"sharded padding {fam}: {SHARD_KERNEL[fam]} was not launched by the "
+                     f"{n}-shard search")
+            out["padded"].append(dict(family=fam, n_shards=n, n_pad=snap.n_pad,
+                                      dispatch=snap.dispatch, launches=counts))
+            if snap.n_pad:
+                out["held"].append(hold_padded(snap, ds.queries, device,
+                                               f"one-segment {fam} on {n} shards"))
+        print(f"  padding {fam}: one sealed segment on {PAD_SHARDS} shards = the unsharded "
+              f"instance", flush=True)
+    del ds, inst, snap
+    print(f"  (b) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) fleet: the GP fit must repeat bit for bit on the card first
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    X, Y = rng.uniform(size=(24, 16)), rng.uniform(size=(24, 2))
+    fits = [GP(seed=0, device=device).fit(X, Y) for _ in range(2)]
+    preds = [gp.predict(X) for gp in fits]
+    same = all(torch.equal(getattr(fits[0].params, f), getattr(fits[1].params, f))
+               for f in ("log_ls", "log_sf", "log_noise")) and all(
+        np.array_equal(a, b) for a, b in zip(preds[0], preds[1]))
+    if not same:
+        fail("fleet: two GP fits of the same data differ on the card")
+    out["fleet"] = {}
+    for quick in (False, True):
+        size = "quick" if quick else "full"
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        fl = bench_fleet.run(quick=quick, device=device)
+        torch.cuda.synchronize()
+        fsecs = time.perf_counter() - t1
+        fleet_launches = ops.launch_counts()  # the tenants' replays, not the sharded path
+        for family, r in fl["families"].items():
+            print(f"  fleet {size} {family}: eval-seconds to {bench_fleet.TARGET_FRAC:.0%} of "
+                  f"cold's final HV ({r['target_hv']:.1f}): cold {r['cold_seconds_to_target']}, "
+                  f"warm {r['warm_seconds_to_target']} (warm wins {r['warm_wins']}); final HV "
+                  f"cold {r['cold_final_hv']:.1f}, warm {r['warm_final_hv']:.1f}; imported "
+                  f"{r['transfer']['n_imported']} from "
+                  f"{[s['name'] for s in r['transfer']['sources']]}; fallback = cold "
+                  f"{r['fallback_matches_cold']}", flush=True)
+            if not r["fallback_matches_cold"]:
+                fail(f"fleet {size} {family}: the no-source fallback left cold start")
+            # the warm-wins gate: at the full budgets keyword_like's warm
+            # arrival crosses later than cold, in the JAX package on the CPU
+            # too, so there it is printed; the quick budgets gate it
+            if quick and not r["warm_wins"]:
+                fail(f"fleet {size} {family}: the warm arrival did not beat cold start")
+        if not fl["resume_bit_identical"]:
+            fail(f"fleet {size}: the resumed fleet differs from the uninterrupted one")
+        print(f"  fleet {size}: resume bit-identical {fl['resume_bit_identical']}; "
+              f"{fsecs:.1f} s; launches of its replays "
+              f"{ {k: c for k, c in fleet_launches.items() if c} }", flush=True)
+        out["fleet"][size] = dict(
+            families={f: {k: v for k, v in r.items() if k not in ("cold_rounds", "warm_rounds")}
+                      for f, r in fl["families"].items()},
+            resume_bit_identical=fl["resume_bit_identical"], seconds=fsecs,
+            launches=fleet_launches)
+    print(f"  (c) {time.perf_counter() - t0:.1f} s (the GP fit repeated bit for bit first)",
+          flush=True)
+
+    # (d) each kernel against its plain version (the sharded searches'
+    # launches were counted in their own windows above)
+    print(f"  launches of the sharded searches of (a) and (b) {path}", flush=True)
+    out["launches"] = path
+    inst = keep["instance"]
+    a, st = inst.bundle.arrays, inst.bundle.static
+    q = torch.from_numpy(keep["dataset"].queries[:inst.batch]).to(device)
+    args = (q, a["codes"], a["scale"], a["centroids"], a["members"], a["gids"])
+    kw = dict(nprobe=st["nprobe"], k=inst.k_seg, mask_dead=False)
+    got, want = (ops.fused_ivf_sq8_topk(*args, **kw, impl=impl) for impl in (None, "torch"))
+    shape = (f"B={q.shape[0]} n_seg={a['gids'].shape[0]} nlist={a['members'].shape[1]} "
+             f"nprobe={st['nprobe']} k={inst.k_seg}")
+    err = check_topk(f"fused_ivf_sq8_topk sharded at {shape}", got, want)
+    ms = cuda_ms(lambda: ops.fused_ivf_sq8_topk(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: ops.fused_ivf_sq8_topk(*args, **kw, impl="torch"), 1, warmup=0)
+    # the work as phase 3 counts it: inputs once and results once; the probe
+    # and a multiply-add per live candidate code, the scale folded per segment
+    n_seg, nlist, _ = a["members"].shape
+    b, d = q.shape
+    live = int((probe_candidates(q, a["centroids"], a["members"], st["nprobe"]) >= 0).sum())
+    bound_ms, bound_by = bound(nbytes(*args) + 2 * n_seg * b * inst.k_seg * 4,
+                               2.0 * n_seg * b * nlist * d + live * 2.0 * d + n_seg * b * d)
+    print(f"  held fused_ivf_sq8_topk on the 4 M stack ({shape}, {live} live candidates): max "
+          f"abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    out["held"].append(dict(kernel="fused_ivf_sq8_topk", label="4 M static", shape=shape,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, live_candidates=live))
+    del keep, inst, a, args, got, want
+    gc.collect()
+    for fam, live in lives.items():
+        out["held"].append(hold_live(live, queries[:32], device, f"1 M {fam}, two lost"))
+    del lives, trace
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     os.environ["REPRO_BENCH_FULL"] = "1"  # phase 8's scale, read when the harness imports
@@ -1759,7 +2085,14 @@ def main() -> int:
     faults = faults_phase(device)
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 11. results
+    # 11. sharded segment serving and fleet tuning
+    t0 = time.perf_counter()
+    print("[11] sharded serving: a 4,194,304-vector corpus on 1, 2 and 4 shards, degraded 1 M "
+          "live states snapshotted across shards; the four-tenant fleet", flush=True)
+    sharded = sharded_phase(device)
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 12. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -1769,7 +2102,7 @@ def main() -> int:
     ]
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
                       "serve": serve, "efficiency": efficiency, "streaming": streaming,
-                      "faults": faults,
+                      "faults": faults, "sharded": sharded,
                       "fused_old_against_new": {
                           n: r.get("old_against_new") for n, r in rows.items()
                           if n.startswith("fused")}, "corners": corners, "pq_adc": pq_adc_runs,

@@ -260,6 +260,9 @@ class GP:
         self.warm_fit_steps = warm_fit_steps
         self.device = resolve_device(device)
         self.state: GPState | None = None
+        # optional prior mean callable X (n,d) -> (n,m) in original Y units;
+        # the GP then models the residuals Y - mu(X)
+        self._prior_mean = None
 
     @property
     def params(self) -> GPParams:
@@ -281,6 +284,7 @@ class GP:
         init: Optional[GPParams] = None,
         steps: Optional[int] = None,
         noise_scale: Optional[np.ndarray] = None,
+        prior_mean=None,
     ) -> "GP":
         """Fit hyperparameters by Adam on the NLL.
 
@@ -289,7 +293,9 @@ class GP:
         unless ``steps`` overrides); shape-mismatched ``init`` (e.g. a
         checkpoint from a different space) silently falls back to a cold fit.
         ``noise_scale`` is an optional (n,) per-row multiplier on the learned
-        observation-noise variance.
+        observation-noise variance. ``prior_mean`` is an optional callable
+        ``X (n,d) -> (n,m)`` in original Y units: the GP fits the residuals
+        and ``predict`` adds the prior back. Both default to the plain fit.
         """
         X = np.asarray(X, np.float32)
         Y = np.asarray(Y, np.float32)
@@ -297,6 +303,9 @@ class GP:
             Y = Y[:, None]
         n, d = X.shape
         m = Y.shape[1]
+        self._prior_mean = prior_mean
+        if prior_mean is not None:
+            Y = Y - np.asarray(prior_mean(X), np.float32).reshape(n, m)
         y_mean = Y.mean(axis=0)
         y_std = Y.std(axis=0) + 1e-8
         Yn = (Y - y_mean) / y_std
@@ -343,12 +352,16 @@ class GP:
                                     s.mask[:n], self._tensor(Xt))
         mean = mean.cpu().numpy() * s.y_std + s.y_mean
         std = np.sqrt(var.cpu().numpy()) * s.y_std
+        if self._prior_mean is not None:
+            Xt = np.asarray(Xt, np.float32)
+            mean = mean + np.asarray(self._prior_mean(Xt), np.float32).reshape(mean.shape)
         return mean, std
 
     def _derived(self, state: GPState) -> "GP":
         out = GP(seed=self.seed, fit_steps=self.fit_steps, warm_fit_steps=self.warm_fit_steps,
                  device=self.device)
         out.state = state
+        out._prior_mean = self._prior_mean
         return out
 
     def with_capacity(self, n_total: int) -> "GP":
@@ -380,6 +393,8 @@ class GP:
         X_new = np.asarray(X_new, np.float32).reshape(-1, d)
         Y_new = np.asarray(Y_new, np.float32).reshape(-1, m)
         s = self.with_capacity(self.n_real + X_new.shape[0]).state
+        if self._prior_mean is not None:
+            Y_new = Y_new - np.asarray(self._prior_mean(X_new), np.float32).reshape(Y_new.shape)
         Yn_new = (Y_new - s.y_mean) / s.y_std
         x, y, mask, chol, alpha = _append_rows(s.params, s.x, s.y, s.mask, s.chol, s.n_real,
                                                self._tensor(X_new), self._tensor(Yn_new))

@@ -49,10 +49,12 @@ from .registry import (
     registered_families,
     registered_names,
     registry_table,
+    shard_pipeline_table,
     temporary_family,
     unregister_family,
 )
 from .segments import SegmentPlan, live_seg_size, plan_segments, stack_sealed
+from .sharded import ShardedVDMS
 from .tuning_env import VDMSTuningEnv, make_space
 from .workload import (
     DRIFT_SCHEDULES,
@@ -68,7 +70,8 @@ from .workload import (
 __all__ = [
     "BuildCrashFault", "BuildDraws", "DRIFT_SCHEDULES", "FaultError", "FaultEvent",
     "FaultInjector", "FaultPlan", "IndexBundle", "IndexFamily", "LiveVDMS", "SegmentPlan",
-    "ShadowBuildOOM", "TransientEngineFault", "VDMSInstance", "VDMSTuningEnv", "VectorDataset",
+    "ShadowBuildOOM", "ShardedVDMS", "TransientEngineFault", "VDMSInstance", "VDMSTuningEnv",
+    "VectorDataset",
     "WorkloadTrace", "analytic_build_seconds", "analytic_chunk_seconds", "batch_signature",
     "blend_vectors", "build_index", "bundle_from_numpy", "canned_fault_plans",
     "classify_eval_error", "concat_bundles",
@@ -78,6 +81,7 @@ __all__ = [
     "merge_topk", "plan_segments", "poisson_arrivals", "recall_at_k", "recall_at_k_masked",
     "register_family", "registered_families", "registered_names", "registry_table",
     "replace_segment", "replay_query_streams", "replay_trace", "search_index",
-    "set_search_pipeline", "stack_sealed", "temporary_family", "time_aware_ground_truth",
+    "set_search_pipeline", "shard_pipeline_table", "stack_sealed", "temporary_family",
+    "time_aware_ground_truth",
     "unregister_family",
 ]

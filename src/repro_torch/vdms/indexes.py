@@ -41,7 +41,8 @@ from ..kernels import ops
 from ..kernels.fused_adc import adc_candidate_scores
 from ..kernels.fused_scan import probe_candidates
 from ..kernels.ref import segment_blocks, topk_stable
-from .fused import fused_search_ivf_pq, fused_search_ivf_sq8, pq_lut
+from .fused import (fused_search_ivf_pq, fused_search_ivf_sq8, pq_lut, shard_search_ivf_pq,
+                    shard_search_ivf_sq8)
 from .kmeans import kmeans, kmeans_l2
 from .registry import REGISTRY, IndexFamily, get_family
 
@@ -639,7 +640,7 @@ REGISTRY.register(IndexFamily(
     ),
     build=build_ivf_sq8, search=_search_ivf_sq8,
     shared_arrays=("scale",), supports_frozen=True,
-    fused_search=fused_search_ivf_sq8,
+    fused_search=fused_search_ivf_sq8, shard_search=shard_search_ivf_sq8,
     chunk_cost=_chunk_cost_ivf(0.5), build_cost=_build_cost_sq,
     description="IVF over int8 scalar-quantized codes",
 ))
@@ -653,7 +654,7 @@ REGISTRY.register(IndexFamily(
     ),
     build=build_ivf_pq, search=_search_ivf_pq,
     shared_arrays=("codebooks",), supports_frozen=True,
-    fused_search=fused_search_ivf_pq,
+    fused_search=fused_search_ivf_pq, shard_search=shard_search_ivf_pq,
     chunk_cost=_chunk_cost_ivf_pq, build_cost=_build_cost_ivf_pq,
     description="IVF + product quantization (ADC lookup scan)",
 ))

@@ -24,7 +24,7 @@ from ..core.space import Param
 from ..kernels.fused_adc import adc_candidate_scores
 from ..kernels.fused_scan import probe_candidates
 from ..kernels.ref import topk_stable
-from .fused import fused_search_ivf_pqr, pq_lut
+from .fused import fused_search_ivf_pqr, pq_lut, shard_search_ivf_pqr
 from .indexes import (
     _NLIST,
     _NPROBE,
@@ -96,6 +96,7 @@ FAMILY = IndexFamily(
     search=search_ivf_pqr,
     shared_arrays=("codebooks",),
     fused_search=fused_search_ivf_pqr,
+    shard_search=shard_search_ivf_pqr,
     supports_frozen=True,
     chunk_cost=_chunk_cost_ivf_pqr,
     build_cost=_build_cost_ivf_pq,  # the re-rank stores raw vectors; build cost is PQ's

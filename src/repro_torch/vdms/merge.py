@@ -77,3 +77,23 @@ def merge_topk(ids, sims, q, growing, growing_gids, topk, alive=None,
     ids2, sims2 = flatten_candidates(ids, sims, alive=alive)
     return merge_flat(ids2, sims2, q, growing, growing_gids, topk,
                       live=alive is not None, return_scores=return_scores)
+
+
+def shard_partial_topk(ids, sims, n_shards: int, k, alive=None):
+    """Every leaf of a merge tree at once, then the root's input: ids, sims
+    (n_shards * per, B, k_seg) per-segment candidates of contiguous shard
+    blocks -> each shard's :func:`partial_topk` as one batched stable top-k
+    over (n_shards * B, per * k_seg), concatenated shard-major -> (B,
+    n_shards * min(k, per * k_seg)). Rows are independent, so this equals a
+    loop of per-shard ``partial_topk`` calls bit for bit."""
+    n_seg, b, ks = ids.shape
+    per = n_seg // n_shards
+
+    def fold(x):  # (n_shards * per, B, ks) -> (per, n_shards * B, ks)
+        return x.reshape(n_shards, per, b, ks).transpose(0, 1).reshape(per, n_shards * b, ks)
+
+    def unfold(x):  # (n_shards * B, kk) -> (B, n_shards * kk)
+        return x.reshape(n_shards, b, -1).transpose(0, 1).reshape(b, -1)
+
+    pid, psc = partial_topk(fold(ids), fold(sims), k, alive=alive)
+    return unfold(pid), unfold(psc)

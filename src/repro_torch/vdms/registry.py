@@ -39,6 +39,9 @@ BuildCostFn = Callable[[Dict[str, Any], int, int, bool], float]
 #: fused_search(q, arrays, growing, growing_gids, *, k_seg, topk, clamp=False,
 #:              alive=None, **static) -> (B, topk) global ids
 FusedSearchFn = Callable[..., Any]
+#: shard_search(q, arrays, *, k_seg, **static) -> (ids, sims), each
+#: (n_seg_local, B, k_seg) with GLOBAL ids and composed masking (-1/-inf)
+ShardSearchFn = Callable[..., Tuple[Any, Any]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,12 @@ class IndexFamily:
     ``repro_torch.vdms.fused``): one call replacing the whole per-search hot
     path. Families without one run their composed ``search`` through the
     engine's generic merge, with identical result sets.
+
+    ``shard_search`` is the optional sharded-serving hook (see
+    ``repro_torch.vdms.sharded``): the candidate stage each shard runs over
+    its local segment stack (per-segment GLOBAL ids and scores, composed
+    masking, full ``k_seg`` width). Families without one run their composed
+    ``search`` inside each shard, with the same results.
     """
 
     name: str
@@ -78,6 +87,7 @@ class IndexFamily:
     search: SearchFn
     shared_arrays: Tuple[str, ...] = ()
     fused_search: Optional[FusedSearchFn] = None
+    shard_search: Optional[ShardSearchFn] = None
     supports_frozen: bool = False
     supports_incremental: bool = True
     builds_kind: Optional[str] = None  # bundle kind produced by build (default: name)
@@ -102,6 +112,8 @@ class IndexFamily:
             )
         if self.fused_search is not None and not callable(self.fused_search):
             raise TypeError(f"{self.name}: fused_search must be callable or None")
+        if self.shard_search is not None and not callable(self.shard_search):
+            raise TypeError(f"{self.name}: shard_search must be callable or None")
 
     @property
     def kind(self) -> str:
@@ -291,4 +303,22 @@ def fused_pipeline_table(families: Optional[Sequence[IndexFamily]] = None) -> st
         stages = getattr(f.fused_search, "stages", "—") if fused else "—"
         frozen = ", ".join(f"`{a}`" for a in f.shared_arrays) if f.supports_frozen else "—"
         rows.append(f"| `{f.name}` | {pipe} | {stages} | {frozen} |")
+    return "\n".join(rows)
+
+
+def shard_pipeline_table(families: Optional[Sequence[IndexFamily]] = None) -> str:
+    """Markdown table of per-family sharded candidate stages (the
+    ``shard_search`` hooks; ``Stages`` from the hook's ``stages``
+    attribute). Families without a hook run their composed ``search`` inside
+    each shard; the merge tree above is family-independent either way."""
+    families = tuple(families) if families is not None else registered_families()
+    rows = [
+        "| Family | Per-shard candidate stage | Stages |",
+        "|---|---|---|",
+    ]
+    for f in families:
+        hooked = f.shard_search is not None
+        pipe = "fused shard hook" if hooked else "composed `search` fallback"
+        stages = getattr(f.shard_search, "stages", "—") if hooked else "—"
+        rows.append(f"| `{f.name}` | {pipe} | {stages} |")
     return "\n".join(rows)

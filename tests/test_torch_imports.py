@@ -54,6 +54,14 @@ TUNING_STACK = {
     "repro_torch.bench.bench_chaos": "oracle_exactness_check",
     "repro_torch.launch.serve_chaos": "main",
     "repro_torch.launch.serve_controlled": "main",
+    "repro_torch.distributed.sharding": "segment_placement",
+    "repro_torch.vdms.sharded": "ShardedVDMS",
+    "repro_torch.bench.bench_sharded": "check_invariants",
+    "repro_torch.launch.serve_sharded": "main",
+    "repro_torch.fleet.descriptor": "DescriptorEmbedding",
+    "repro_torch.fleet.transfer": "apply_transfer",
+    "repro_torch.fleet.fleet": "FleetSession",
+    "repro_torch.bench.bench_fleet": "run",
 }
 
 
