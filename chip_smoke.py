@@ -103,10 +103,26 @@ Phases, each fatal on failure:
      and read after, all three VDMS kernels must have launched; then the
      fused SQ8 kernel held against its plain version on the 4 M stack at
      the shard hook's width, and each kernel on the degraded live states;
- 12. a ``{"kernels": [...]}`` line, then the card line and the device line.
+ 12. training: the flash backward kernel (through ``ops.flash_attention``'s
+     autograd Function) against autograd of the plain forward at glm4-9b's
+     training shape (4 x 2048, 32/2 heads, dh 128, causal) in bf16 and f32,
+     the forward's log-sum-exp against the plain one, the kernel timed beside
+     the plain backward, autograd of SDPA and its bound;
+     ``repro_torch.launch.train.run`` on glm4-9b at full width, depth cut to
+     8 layers, 4 x 2048 tokens, 10 steps (finite losses from near ln(vocab),
+     falling; the backward kernel launched 8 x 10 times, counters reset just
+     before and read just after); the same ten steps at two layers with the
+     kernels and through the plain flash versions, the losses and every
+     leaf's gradient of steps 0 and 1 held against each other; the
+     reduced glm4-9b preempted after 25 of 30 steps (a checkpoint every 10)
+     and resumed, bit-equal to an uninterrupted run under
+     ``torch.use_deterministic_algorithms``;
+ 13. a ``{"kernels": [...]}`` line, then the card line and the device line.
 
 The script sets ``REPRO_BENCH_FULL=1`` in its own process before it imports
-the port (only the benchmark harness reads it).
+the port (only the benchmark harness reads it), and
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (unless set) for phase 12's
+deterministic resume check.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's ``src/repro_torch`` beside this file.
@@ -1926,9 +1942,349 @@ def sharded_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training phase: the flash backward at glm4-9b's training shape, the
+# trainer at full width, the kernel step against the plain step, resume
+# ---------------------------------------------------------------------------
+# training attention: batch 4 x 2048, 32 query heads over 2 kv heads, dh 128
+FLASH_BWD_SHAPE = (4, 2048, 32, 2, 128)
+# each of dq, dk and dv against its own largest |value| and by its relative
+# L2. f32: the same arithmetic summed in other orders, dK and dV over up to
+# 16 heads x 2,048 queries (as a random walk sqrt(32,768) x 2**-24 = 1.1e-5
+# relative). bf16: both sides compute in f32 from the same bf16 inputs and
+# round each gradient once (2**-8 of an element, so at most 2**-7 of the
+# largest when the two round to neighbouring values); the kernel's delta
+# comes from the forward kernel's bf16 output, which rounds P before P.V,
+# and the autograd path's from the plain forward's f32 output, which moves
+# dq and dk by about 1.3e-3 relative L2, so the L2 limit holds six times
+# that. dq 5 % off shows as 5e-2 in both types
+FLASH_BWD_TOL = {"f32": 1e-4, "bf16": 2.0**-7}
+FLASH_BWD_L2 = {"f32": 3e-5, "bf16": 2.0**-7}
+LSE_TOL = 1e-4  # f32 log-sum-exp over up to 2,048 keys, summed in other orders
+# glm4-9b at full width (d 4,096, 32/2 heads, d_ff 13,696, vocab 151,552,
+# bf16), depth cut to 8 layers: 40 layers need 112.8 GB of weights,
+# gradients and f32 moments, more than the card's 80 GB (PERF.md section 4)
+TRAIN_DEPTH = 8
+TRAIN = dict(seq_len=2048, global_batch=4, steps=10, warmup=2)
+FIRST_LOSS_RANGE = (9.0, 15.0)  # ln(151,552) = 11.93 for uniform logits
+# (c) kernel path against plain path: (b)'s schedule and batch at 2 layers
+# (the plain path stores the scores, b * hq * s * s f32 a layer). The lr of
+# step 0 is 0, so steps 0 and 1 both take gradients of the initial weights:
+# those are held leaf by leaf. The forward kernel rounds P to bf16 before
+# P.V where the plain version keeps f32, so the losses may differ in their
+# fourth digit and each bf16 gradient by a few of its roundings; a fault in
+# one gradient of the attention (dq 5 % off, dK of one head of each group,
+# dq zeroed) moves wq's or wk's and wv's gradient by 5 % to 100 %
+STEP_LOSS_RTOL = 5e-3
+STEP_GRAD_RTOL = 2.0**-6
+RESUME = dict(steps=30, interrupt_after=25, ckpt_every=10, seq_len=128, global_batch=8, warmup=2)
+
+
+def flash_bwd_errors(q, k, v, dout):
+    """dq, dk and dv of the kernel path (``ops.flash_attention``'s autograd
+    Function) against autograd of the plain forward: for each, the max abs
+    difference, its own max |gradient| and the relative L2 difference."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    grads = []
+    for impl in (None, "torch"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.flash_attention(*leaves, impl=impl).backward(dout)
+        grads.append([t.grad for t in leaves])
+        del leaves
+    torch.cuda.synchronize()
+    errs = {}
+    for n, got, want in zip(("dq", "dk", "dv"), *grads):
+        got, want = got.float(), want.float()
+        errs[n] = dict(max_abs_err=float((got - want).abs().max()),
+                       max_abs_grad=float(want.abs().max()),
+                       rel_l2=float((got - want).norm() / want.norm()))
+    return errs
+
+
+def hold_flash_bwd(name, errs):
+    """Prints each gradient's errors, then fails unless each is within
+    ``FLASH_BWD_TOL`` of its own max |gradient| and ``FLASH_BWD_L2`` in
+    relative L2."""
+    for n, e in errs.items():
+        print(f"  flash_attention_bwd {name} {n}: max abs difference {e['max_abs_err']:.3e} of "
+              f"max |{n}| {e['max_abs_grad']:.4f}, relative L2 {e['rel_l2']:.3e} (autograd of "
+              f"the plain forward)", flush=True)
+    for n, e in errs.items():
+        if not e["max_abs_err"] <= FLASH_BWD_TOL[name] * e["max_abs_grad"]:
+            fail(f"flash_attention_bwd {name} {n}: max abs difference {e['max_abs_err']} > "
+                 f"{FLASH_BWD_TOL[name]} x {e['max_abs_grad']}")
+        if not e["rel_l2"] <= FLASH_BWD_L2[name]:
+            fail(f"flash_attention_bwd {name} {n}: relative L2 difference {e['rel_l2']} > "
+                 f"{FLASH_BWD_L2[name]}")
+
+
+def flash_bwd_inputs(dtype, g, device):
+    import torch
+
+    b, s, hq, hkv, dh = FLASH_BWD_SHAPE
+    q = torch.randn(b, s, hq, dh, generator=g, device=device).to(dtype)
+    k = torch.randn(b, s, hkv, dh, generator=g, device=device).to(dtype)
+    v = (torch.rand(b, s, hkv, dh, generator=g, device=device) * 2 - 1).to(dtype)
+    dout = (torch.rand(b, s, hq, dh, generator=g, device=device) * 2 - 1).to(dtype)
+    return q, k, v, dout
+
+
+def flash_bwd_check(device):
+    """Phase 12 (a): the backward kernel, through ``ops.flash_attention``'s
+    autograd Function, against autograd of the plain forward at glm4-9b's
+    training shape in bf16 and f32, each gradient held on its own; the
+    forward's lse against the plain one; the kernel timed beside the plain
+    backward, autograd of SDPA (kv heads expanded, summed back over each
+    group) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_torch,
+                                                     flash_attention_cuda,
+                                                     flash_attention_lse_torch)
+
+    b, s, hq, hkv, dh = FLASH_BWD_SHAPE
+    g = torch.Generator(device=device).manual_seed(0)
+    res = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v, dout = flash_bwd_inputs(dtype, g, device)
+        errs = flash_bwd_errors(q, k, v, dout)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        _, lse_ref = flash_attention_lse_torch(q, k, v)
+        lse_err = float((lse - lse_ref).abs().max())
+        del lse_ref
+        hold_flash_bwd(name, errs)
+        print(f"  flash_attention {name}: lse max abs difference {lse_err:.3e}", flush=True)
+        if not lse_err <= LSE_TOL:
+            fail(f"flash_attention lse {name}: max abs difference {lse_err} > {LSE_TOL}")
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout), 5)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_torch(q, k, v, out, lse, dout), 2, warmup=1)
+        torch.cuda.empty_cache()
+        # the library: autograd of SDPA over (b, h, s, dh) with the kv heads
+        # expanded; the gradient of the expansion sums them back per group
+        qh = q.transpose(1, 2).detach().requires_grad_()
+        kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (k, v))
+        oh = F.scaled_dot_product_attention(qh, kh.repeat_interleave(hq // hkv, dim=1),
+                                            vh.repeat_interleave(hq // hkv, dim=1), is_causal=True)
+        doh = dout.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True), 5)
+        flops = 10.0 * dh * b * hq * (s * (s + 1) // 2)  # five products over the visible half
+        peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
+        bms, by = bound(nbytes(q, k, v, out, dout, lse) + nbytes(q, k, v), flops, peak)
+        res[name] = dict(grads=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                         lse_err=lse_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bms, bound_by=by)
+        print(f"  flash_attention_bwd {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bms:.4f} ms ({by}, {flops / 1e9:.1f} GFLOP)",
+              flush=True)
+        del q, k, v, dout, out, lse, qh, kh, vh, oh, doh
+        torch.cuda.empty_cache()
+    r = res["bf16"]
+    row = dict(replaces="src/repro/kernels/flash_xla.py:145",
+               source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+               library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+               shape=f"q/dout {(b, s, hq, dh)} k/v {(b, s, hkv, dh)} bf16 causal")
+    return row, res
+
+
+def train_steps(cfg, device, plain: bool):
+    """``make_train_step`` over (b)'s schedule and batches, from the weights
+    of seed 0, the plain flash forward and backward when ``plain``
+    (``ops.flash_attention`` wrapped to pass ``impl="torch"`` in this
+    process). Returns every step's loss and the gradients that steps 0 and
+    1 handed to the compression, both of the initial weights (the lr of
+    step 0 is 0)."""
+    import torch
+
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, CompressionConfig, init_state
+
+    tcfg = train.TrainConfig(arch=cfg.name, smoke=False, **TRAIN)
+    model = build_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(tcfg.seed)).requires_grad_(True)
+    state = init_state(params)
+    step = train.make_train_step(model, tcfg, AdamWConfig(lr=tcfg.lr), CompressionConfig())
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=tcfg.seq_len,
+                                    global_batch=tcfg.global_batch, seed=tcfg.seed))
+    flash, compress, grads = ops.flash_attention, train.compress_grads, []
+
+    def keep(g, ef_state, comp):
+        if len(grads) < 2:
+            grads.append(g)
+        return compress(g, ef_state, comp)
+
+    if plain:
+        ops.flash_attention = lambda q, k, v, causal=True, window=None, impl=None: flash(
+            q, k, v, causal=causal, window=window, impl="torch")
+    train.compress_grads = keep
+    try:
+        losses = []
+        for i in range(tcfg.steps):
+            batch = {"tokens": torch.from_numpy(pipe.batch_at(i)).to(device)}
+            loss, params, state, _ = step(params, state, batch, None)
+            losses.append(float(loss))
+    finally:
+        ops.flash_attention, train.compress_grads = flash, compress
+    del params, state, model
+    torch.cuda.empty_cache()
+    return losses, grads
+
+
+def hold_step_grads(kernel_grads, plain_grads):
+    """The relative L2 difference of each leaf's gradient, kernel path
+    against plain path, at steps 0 and 1; prints the largest and fails
+    unless every one is within ``STEP_GRAD_RTOL``. Returns the worst per
+    leaf."""
+    worst = {}
+    for got, want in zip(kernel_grads, plain_grads):
+        for n, w in want.items():
+            w = w.float()
+            rel = float((got[n].float() - w).norm() / w.norm())
+            worst[n] = max(worst.get(n, 0.0), rel)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])
+    print(f"  (c) gradients of steps 0 and 1, relative L2 kernel against plain, largest: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in top[:6]) + f"; {len(top)} leaves", flush=True)
+    for n, r in top:
+        if not r <= STEP_GRAD_RTOL:
+            fail(f"train step: the gradient of {n} differs by {r} (relative L2) > {STEP_GRAD_RTOL}")
+    return worst
+
+
+def training_phase(device):
+    """Phase 12: (a) the flash backward at glm4-9b's training shape; (b)
+    ``launch.train.run`` on glm4-9b at full width, 8 layers, 4 x 2048
+    tokens, 10 steps, counters reset just before and read just after; (c)
+    the same ten steps at full width and two layers with the kernels and
+    with the plain flash forward and backward, the losses and each leaf's
+    gradient of steps 0 and 1 held; (d) the reduced glm4-9b
+    trained 30 steps with a checkpoint every 10, preempted after 25 and
+    resumed to 30, against an uninterrupted 30-step run, bit for bit under
+    ``torch.use_deterministic_algorithms``."""
+    import dataclasses
+    import shutil
+    import signal
+
+    import torch
+
+    from repro_torch.configs import get_arch, register
+    from repro_torch.ft.monitor import StragglerMonitor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    out = {}
+    t0 = time.perf_counter()
+    row, out["flash_bwd"] = flash_bwd_check(device)
+    print(f"  (a) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) the trainer at full width
+    t0 = time.perf_counter()
+    cfg = register(dataclasses.replace(get_arch("glm4-9b"), name=f"glm4-9b-d{TRAIN_DEPTH}",
+                                       n_layers=TRAIN_DEPTH))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = train.run(train.TrainConfig(arch=cfg.name, smoke=False, ckpt_dir=None, **TRAIN))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses, steps = res["losses"], TRAIN["steps"]
+    step_s = sorted(res["step_s"][1:])[len(res["step_s"][1:]) // 2]
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    per_step = {n: launches[n] / steps for n in ("flash_attention", "flash_attention_bwd")}
+    print(f"  (b) {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}) "
+          f"{steps} steps of {TRAIN['global_batch']} x {TRAIN['seq_len']}: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}; median step after step 0 {step_s:.4f} s "
+          f"({tokens / step_s:.1f} tokens/s); step 0 {res['step_s'][0]:.2f} s; peak device "
+          f"memory {peak_gib:.2f} GiB; launches per step {per_step}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"train: non-finite loss in {losses}")
+    if not FIRST_LOSS_RANGE[0] <= losses[0] <= FIRST_LOSS_RANGE[1]:
+        fail(f"train: first loss {losses[0]} outside {FIRST_LOSS_RANGE}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    if launches["flash_attention_bwd"] != TRAIN_DEPTH * steps:
+        fail(f"train: {launches['flash_attention_bwd']} flash_attention_bwd launches, expected "
+             f"{TRAIN_DEPTH} layers x {steps} steps")
+    out["train"] = dict(arch=cfg.name, losses=losses, step_s=res["step_s"],
+                        median_step_s=step_s, tokens_per_s=tokens / step_s, peak_gib=peak_gib,
+                        launches=launches, launches_per_step=per_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the kernel path against the plain path at full width, 2 layers
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(get_arch("glm4-9b"), name="glm4-9b-d2", n_layers=2)
+    kl, kg = train_steps(cfg2, device, plain=False)
+    pl, pg = train_steps(cfg2, device, plain=True)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(kl, pl)]
+    print(f"  (c) glm4-9b x2, {TRAIN['steps']} steps of {TRAIN['global_batch']} x "
+          f"{TRAIN['seq_len']}: losses kernel {[round(x, 4) for x in kl]}, plain "
+          f"{[round(x, 4) for x in pl]} (relative difference at steps 0 and 1 {loss_rel[0]:.3e}, "
+          f"{loss_rel[1]:.3e}; largest over the run {max(loss_rel):.3e}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not max(loss_rel[:2]) <= STEP_LOSS_RTOL:
+        fail(f"train step: losses differ by {loss_rel[:2]} (relative) > {STEP_LOSS_RTOL}")
+    grad_rel = hold_step_grads(kg, pg)
+    out["step_vs_plain"] = dict(kernel_losses=kl, plain_losses=pl, loss_rel=loss_rel,
+                                grad_rel_l2=grad_rel)
+    del kg, pg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) resume on the card at the reduced size
+    t0 = time.perf_counter()
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(arch="glm4-9b", smoke=True, steps=RESUME["steps"], seq_len=RESUME["seq_len"],
+              global_batch=RESUME["global_batch"], warmup=RESUME["warmup"],
+              ckpt_every=RESUME["ckpt_every"], async_ckpt=False, log_every=100)
+    record = StragglerMonitor.record
+
+    def preempting(self, step, seconds):  # the signal a preempted job gets
+        if step == RESUME["interrupt_after"] - 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return record(self, step, seconds)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        whole = train.run(train.TrainConfig(**kw))["losses"]
+        train.StragglerMonitor.record = preempting
+        try:
+            first = train.run(train.TrainConfig(**kw, ckpt_dir=str(ckpt)))["losses"]
+        finally:
+            train.StragglerMonitor.record = record
+        rest = train.run(train.TrainConfig(**kw, ckpt_dir=str(ckpt)))["losses"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same = first + rest == whole
+    print(f"  (d) reduced glm4-9b: {len(first)} steps, preempted, resumed for {len(rest)}: "
+          f"losses equal to the uninterrupted run's bit for bit: {same} (last {rest[-1]!r} vs "
+          f"{whole[-1]!r}); {time.perf_counter() - t0:.1f} s", flush=True)
+    if len(first) != RESUME["interrupt_after"] or not same:
+        fail(f"train resume: {first} + {rest} != {whole}")
+    out["resume"] = dict(whole=whole, first=first, rest=rest)
+    return row, launches, out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     os.environ["REPRO_BENCH_FULL"] = "1"  # phase 8's scale, read when the harness imports
+    # cuBLAS's deterministic workspace, for phase 12's bit-equal resume
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -1963,8 +2319,11 @@ def main() -> int:
     for name in _build.KERNEL_SOURCES:
         for fn, regs, spills in ptxas_report((_build.build_dir() / f"{name}.ptxas.txt").read_text()):
             print(f"  {name}: {fn}: {regs}; {spills}")
+    bwd = _build.load("flash_attention_bwd")
     print(f"  dynamic shared memory per block: flash bf16 (dh 128) "
-          f"{_build.load('flash_attention').flash_attention_bf16_smem(128)} B; distance at "
+          f"{_build.load('flash_attention').flash_attention_bf16_smem(128)} B; flash backward "
+          f"(dh 128) dK/dV {bwd.flash_attention_bwd_smem(128, 1)} B, dQ "
+          f"{bwd.flash_attention_bwd_smem(128, 0)} B; distance at "
           f"B = 32, f32: {_build.load('distance').distance_smem(32)} B", flush=True)
     sq8, pq = _build.load("fused_scan"), _build.load("fused_adc")
     print(f"  fused SQ8 (d 100, nlist 128, k 64) {sq8.fused_ivf_sq8_topk_smem(100, 128, 64)} B; "
@@ -2092,7 +2451,16 @@ def main() -> int:
     sharded = sharded_phase(device)
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 12. results
+    # 12. training
+    t0 = time.perf_counter()
+    print(f"[12] training: the flash backward at glm4-9b's training shape; glm4-9b at full "
+          f"width ({TRAIN_DEPTH} layers) for {TRAIN['steps']} steps; kernel step against plain "
+          f"step; resume", flush=True)
+    rows["flash_attention_bwd"], train_launches, training = training_phase(device)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -2102,7 +2470,7 @@ def main() -> int:
     ]
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
                       "serve": serve, "efficiency": efficiency, "streaming": streaming,
-                      "faults": faults, "sharded": sharded,
+                      "faults": faults, "sharded": sharded, "training": training,
                       "fused_old_against_new": {
                           n: r.get("old_against_new") for n, r in rows.items()
                           if n.startswith("fused")}, "corners": corners, "pq_adc": pq_adc_runs,

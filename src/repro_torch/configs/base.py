@@ -70,7 +70,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    if not _REGISTRY:
+    if name not in _REGISTRY:
         list_archs()
     return _REGISTRY[name]
 

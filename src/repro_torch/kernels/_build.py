@@ -19,7 +19,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("distance", "fused_scan", "fused_adc", "pq_adc", "flash_attention")
+KERNEL_SOURCES = ("distance", "fused_scan", "fused_adc", "pq_adc", "flash_attention",
+                  "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -7,7 +7,11 @@
 // softmax over the visible 64-key tiles with a running max m, normaliser l
 // and accumulator per row, all f32. Key tiles that no query of the block can
 // see (above the causal diagonal, before the window) are never loaded. A row
-// that sees no key gives 0. Two kernels, chosen by the storage type:
+// that sees no key gives 0. When lse is not null, each row's log-sum-exp of
+// its scaled scores, max + log(sum), goes to lse (b, sq, hq) f32 (-inf for a
+// row that sees no key) for the backward (flash_attention_bwd.cu); a null
+// lse leaves the serving launch as it was. Two kernels, chosen by the
+// storage type:
 //
 // * bf16 (the serving dtype): bound by the tensor cores. A block holds 128
 //   query rows: G = 4 (or 2, 1) query heads that share one kv head times
@@ -112,7 +116,7 @@ constexpr int HB_CONSUMER_WARPS = 8;
 // the consumers hold S, its successor, P and O; 128 x 40 + 256 x 232 fits
 // the SM's 65,536
 constexpr int HB_PRODUCER_REGS = 40, HB_CONSUMER_REGS = 232;
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 // The bf16 kernel's place in the problem: batch bi, kv head hk, the first of
 // its G query heads h0, its first query row q0 and P = 128 / G rows per head.
@@ -269,7 +273,7 @@ template <int DH>
 __global__ void __launch_bounds__(HB_THREADS, 1)
 fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, unsigned short* __restrict__ o,
-            const Params p, const int g) {
+            float* __restrict__ lse, const Params p, const int g) {
   constexpr int NB = DH > 64 ? 2 : 1;  // 64-column blocks of the head dim (DH < 64 zero-padded)
   using L = HLayout<NB>;
   extern __shared__ unsigned char smem_raw[];
@@ -452,7 +456,10 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int r = 64 * wg + 16 * wq + gq + 8 * i, qr = tl.q0 + r / g;
     if (qr >= p.sq) continue;
-    unsigned short* orow = o + (((long long)tl.bi * p.sq + qr) * p.hq + tl.h0 + r % g) * DH;
+    const long long row = ((long long)tl.bi * p.sq + qr) * p.hq + tl.h0 + r % g;
+    // m is in the log2 domain of the scaled scores
+    if (lse != nullptr && t == 0) lse[row] = l > 0.f ? m[i] * LN2 + logf(l) : -INFINITY;
+    unsigned short* orow = o + row * DH;
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -507,7 +514,7 @@ __device__ __forceinline__ void stage(float* dst, const float* src, long long ro
 template <int DH>
 __global__ void __launch_bounds__(NT, 2)
 fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           float* __restrict__ o, const Params p) {
+           float* __restrict__ o, float* __restrict__ lse, const Params p) {
   constexpr int LD = DH + 4;
   constexpr int VEC = DH >= 64 ? 4 : DH / 16;  // output columns per shared-memory read
   constexpr int NCH = DH / (16 * VEC);         // such reads per row and key
@@ -603,7 +610,9 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float
   for (int i = 0; i < 4; ++i) {
     const int r = tl.q0 + ty * 4 + i;
     if (r >= p.sq) continue;
-    float* orow = o + (((long long)tl.bi * p.sq + r) * p.hq + tl.h) * DH;
+    const long long row = ((long long)tl.bi * p.sq + r) * p.hq + tl.h;
+    if (lse != nullptr && tx == 0) lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
+    float* orow = o + row * DH;
 #pragma unroll
     for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
@@ -616,14 +625,14 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float
 // launch
 // ---------------------------------------------------------------------------
 template <int DH>
-int launch_dh(const float* q, const float* k, const float* v, float* o, const Params& p,
-              cudaStream_t stream) {
+int launch_dh(const float* q, const float* k, const float* v, float* o, float* lse,
+              const Params& p, cudaStream_t stream) {
   const int smem = (int)sizeof(float) * (BQ * (DH + 4) + BK * (DH + 4) + BQ * LDP);
   cudaError_t err =
       cudaFuncSetAttribute(fa_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.b * p.hq, (p.sq + BQ - 1) / BQ);
-  fa_fwd_f32<DH><<<grid, NT, smem, stream>>>(q, k, v, o, p);
+  fa_fwd_f32<DH><<<grid, NT, smem, stream>>>(q, k, v, o, lse, p);
   return (int)cudaGetLastError();
 }
 
@@ -668,7 +677,7 @@ int bf16_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int dh, int n1,
 
 template <int DH>
 int launch_dh(const unsigned short* q, const unsigned short* k, const unsigned short* v,
-              unsigned short* o, const Params& p, cudaStream_t stream) {
+              unsigned short* o, float* lse, const Params& p, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const int group = p.hq / p.hkv;
@@ -684,23 +693,23 @@ int launch_dh(const unsigned short* q, const unsigned short* k, const unsigned s
       cudaFuncSetAttribute(fa_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(p.b * p.hkv * (group / g), (p.sq + rows - 1) / rows);
-  fa_fwd_bf16<DH><<<grid, HB_THREADS, smem, stream>>>(qmap, kmap, vmap, o, p, g);
+  fa_fwd_bf16<DH><<<grid, HB_THREADS, smem, stream>>>(qmap, kmap, vmap, o, lse, p, g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int b, int sq, int sk, int hq, int hkv,
-           int dh, long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+int launch(const T* q, const T* k, const T* v, T* o, float* lse, int b, int sq, int sk, int hq,
+           int hkv, int dh, long long qsb, long long qss, long long qsh, long long ksb, long long kss,
            long long ksh, long long vsb, long long vss, long long vsh, int causal, int window,
            void* stream) {
   const Params p{b,   sq,  sk,  hq,  hkv, causal, window, qsb, qss, qsh, ksb, kss,
                  ksh, vsb, vss, vsh, (float)(1.0 / sqrt((double)dh))};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
-    case 16: return launch_dh<16>(q, k, v, o, p, st);
-    case 32: return launch_dh<32>(q, k, v, o, p, st);
-    case 64: return launch_dh<64>(q, k, v, o, p, st);
-    case 128: return launch_dh<128>(q, k, v, o, p, st);
+    case 16: return launch_dh<16>(q, k, v, o, lse, p, st);
+    case 32: return launch_dh<32>(q, k, v, o, lse, p, st);
+    case 64: return launch_dh<64>(q, k, v, o, lse, p, st);
+    case 128: return launch_dh<128>(q, k, v, o, lse, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -708,22 +717,22 @@ int launch(const T* q, const T* k, const T* v, T* o, int b, int sq, int sk, int 
 }  // namespace
 
 extern "C" int flash_attention_f32(const float* q, const float* k, const float* v, float* o,
-                                   int b, int sq, int sk, int hq, int hkv, int dh, long long qsb,
-                                   long long qss, long long qsh, long long ksb, long long kss,
+                                   float* lse, int b, int sq, int sk, int hq, int hkv, int dh,
+                                   long long qsb, long long qss, long long qsh, long long ksb, long long kss,
                                    long long ksh, long long vsb, long long vss, long long vsh,
                                    int causal, int window, void* stream) {
-  return launch<float>(q, k, v, o, b, sq, sk, hq, hkv, dh, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+  return launch<float>(q, k, v, o, lse, b, sq, sk, hq, hkv, dh, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
                        vsh, causal, window, stream);
 }
 
 // bf16 storage, passed as its 16-bit patterns
 extern "C" int flash_attention_bf16(const unsigned short* q, const unsigned short* k,
-                                    const unsigned short* v, unsigned short* o, int b, int sq,
+                                    const unsigned short* v, unsigned short* o, float* lse, int b, int sq,
                                     int sk, int hq, int hkv, int dh, long long qsb, long long qss,
                                     long long qsh, long long ksb, long long kss, long long ksh,
                                     long long vsb, long long vss, long long vsh, int causal,
                                     int window, void* stream) {
-  return launch<unsigned short>(q, k, v, o, b, sq, sk, hq, hkv, dh, qsb, qss, qsh, ksb, kss, ksh,
+  return launch<unsigned short>(q, k, v, o, lse, b, sq, sk, hq, hkv, dh, qsb, qss, qsh, ksb, kss, ksh,
                                 vsb, vss, vsh, causal, window, stream);
 }
 

@@ -18,7 +18,8 @@ from typing import Dict, Optional
 import torch
 
 from .distance import distance_cuda, distance_torch
-from .flash_attention import flash_attention_cuda, flash_attention_torch
+from .flash_attention import (FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda,
+                              flash_attention_torch)
 from .fused_adc import fused_ivf_pq_topk_cuda, fused_ivf_pq_topk_torch
 from .fused_scan import fused_ivf_sq8_topk_cuda, fused_ivf_sq8_topk_torch
 from .pq_adc import pq_adc_cuda, pq_adc_torch
@@ -36,6 +37,7 @@ KERNELS = {
     "fused_ivf_pq_topk": fused_ivf_pq_topk_cuda,
     "pq_adc": pq_adc_cuda,
     "flash_attention": flash_attention_cuda,
+    "flash_attention_bwd": flash_attention_bwd_cuda,
 }
 
 
@@ -100,8 +102,17 @@ def fused_ivf_pq_topk(q, lut, codes, centroids, members, gids, *, nprobe: int, k
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                     impl: Optional[str] = None):
-    """Attention forward with GQA: q (b, sq, hq, dh), k and v (b, sk, hkv, dh)
+    """Attention with GQA: q (b, sq, hq, dh), k and v (b, sk, hkv, dh)
     -> (b, sq, hq, dh) in q's dtype; queries at the tail of the key axis,
-    optional sliding ``window``; f32 or bf16, f32 softmax and accumulation."""
-    fn = flash_attention_cuda if _use_kernel(impl, q) else flash_attention_torch
-    return fn(q, k, v, causal=causal, window=window)
+    optional sliding ``window``; f32 or bf16, f32 softmax and accumulation.
+
+    Differentiable. CUDA tensors that need a gradient go through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttention` (the forward
+    kernel with its log-sum-exp, the backward kernel); without a gradient
+    the forward kernel alone runs, as at prefill. CPU tensors, and
+    ``impl="torch"``, take the plain forward under autograd."""
+    if not _use_kernel(impl, q):
+        return flash_attention_torch(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -1,6 +1,6 @@
 """Shared model components: RMSNorm, RoPE, GQA attention (full sequence,
-prefill and one decode step against a KV cache), SwiGLU MLP, embedding and
-LM head.
+prefill and one decode step against a KV cache), SwiGLU MLP, embedding, LM
+head and the token-chunked LM loss.
 
 Plain functions on tensors, in the JAX package's order of casts (the tests
 hold them against ``repro/models/common.py``), and the ``nn.Module``s that
@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
@@ -25,8 +26,9 @@ def act_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def empty_weight(*shape, dtype, device) -> nn.Parameter:
-    """An uninitialised inference weight (filled by ``init_params`` or
-    ``params_from_numpy``)."""
+    """An uninitialised weight (filled by ``init_params`` or
+    ``params_from_numpy``), without a gradient until the trainer asks for
+    one (``params.requires_grad_()``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
@@ -209,3 +211,42 @@ def lm_logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Logits over the padded vocabulary (``cfg.vocab_padded`` columns)."""
     w = params.head if not cfg.tie_embeddings else params.embed.T
     return x @ w
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy; logits (..., V) of any float dtype, reductions in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    true = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - true)
+
+
+def lm_loss(params, x: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig,
+            chunk_tokens: int = 8192) -> torch.Tensor:
+    """Token-chunked LM cross-entropy (``repro/models/common.py::lm_loss``):
+    the (tokens, vocab_padded) f32 logits exist one chunk at a time, in the
+    forward and in the backward (each chunk is checkpointed, so the backward
+    recomputes its logits). The chunks' summed losses are added in chunk
+    order and divided by the token count."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    lt = labels.reshape(t).long()
+    n_chunks = max(1, t // chunk_tokens)
+    while t % n_chunks:
+        n_chunks -= 1
+    size = t // n_chunks
+
+    def chunk_loss(xi, li):
+        lf = lm_logits(params, xi, cfg).float()
+        lse = torch.logsumexp(lf, dim=-1)
+        true = torch.gather(lf, 1, li[:, None])[:, 0]
+        return torch.sum(lse - true)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        xi, li = xt[i * size:(i + 1) * size], lt[i * size:(i + 1) * size]
+        part = (checkpoint(chunk_loss, xi, li, use_reentrant=False) if torch.is_grad_enabled()
+                else chunk_loss(xi, li))
+        total = total + part
+    return total / t

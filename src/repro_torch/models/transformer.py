@@ -1,8 +1,8 @@
 """Dense decoder-only transformer (GQA, RoPE, SwiGLU, optional QKV bias,
 optional sliding window): glm4-9b, deepseek-67b, internlm2-20b, qwen2.5-32b
-and chameleon-34b. The serving half of ``repro/models/transformer.py``:
-``init_params``, ``forward``, ``prefill``, ``decode_step``, ``init_cache``
-and ``cache_len_for``; the training loss waits for the training slice.
+and chameleon-34b. The port of ``repro/models/transformer.py``:
+``init_params``, ``forward`` with its remat policies, ``loss_fn``,
+``prefill``, ``decode_step``, ``init_cache`` and ``cache_len_for``.
 
 The layer stack is a Python loop over ``Block`` modules where JAX scans
 stacked parameters; KV caches keep the JAX layout, stacked
@@ -10,14 +10,48 @@ stacked parameters; KV caches keep the JAX layout, stacked
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from . import common as cm
+
+_aten = torch.ops.aten
+# matrix products as they reach the dispatcher: ``x @ w`` of a 2-D weight is
+# ``mm``/``addmm`` after a reshape; einsums with a batch dim are ``bmm``
+_DOTS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default)
+_DOTS_NO_BATCH = (_aten.mm.default, _aten.addmm.default)
+
+
+def _saving(ops):
+    """Selective checkpointing that keeps the outputs of ``ops`` and
+    recomputes everything else of the block in the backward."""
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+#: remat policy name -> what each block keeps for its backward, with the JAX
+#: package's meanings (``repro/models/transformer.py:18``): "everything"
+#: (None here) recomputes nothing; "none" (``jax.checkpoint`` without a
+#: policy) and "nothing" recompute the whole block; "dots" keeps the matrix
+#: products; "dots_no_batch" only those without batch dimensions. A callable
+#: is the ``context_fn`` of ``torch.utils.checkpoint``. No policy changes a
+#: value: each recomputes the same operations on the same inputs.
+REMAT_POLICIES = {
+    "none": torch.utils.checkpoint.noop_context_fn,
+    "dots": _saving(_DOTS),
+    "dots_no_batch": _saving(_DOTS_NO_BATCH),
+    "nothing": torch.utils.checkpoint.noop_context_fn,
+    "everything": None,
+}
 
 
 class Block(nn.Module):
@@ -69,41 +103,64 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> Transformer:
     return p
 
 
+def named_from_numpy(cfg: ArchConfig, tree: Mapping) -> Dict[str, np.ndarray]:
+    """A JAX parameter pytree (or one shaped like it: gradients, AdamW
+    moments) as numpy arrays keyed by the port's parameter names
+    (``Transformer.named_parameters()``), the stacked layer leaves split
+    per block."""
+    out = {"embed": tree["embed"]}
+    if not cfg.tie_embeddings:
+        out["head"] = tree["head"]
+    layers = tree["layers"]
+    attn = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv") if cfg.qkv_bias else ())
+    for i in range(cfg.n_layers):
+        out[f"blocks.{i}.attn_norm.scale"] = layers["attn_norm"]["scale"][i]
+        for name in attn:
+            out[f"blocks.{i}.attn.{name}"] = layers["attn"][name][i]
+        out[f"blocks.{i}.mlp_norm.scale"] = layers["mlp_norm"]["scale"][i]
+        for name in ("w_gate", "w_up", "w_down"):
+            out[f"blocks.{i}.mlp.{name}"] = layers["mlp"][name][i]
+    out["final_norm.scale"] = tree["final_norm"]["scale"]
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def params_from_numpy(cfg: ArchConfig, np_params: Mapping) -> Transformer:
     """The port's weights, on the CPU, holding the JAX package's parameters:
     the nested dict of ``repro.models.transformer.init_params`` as numpy
     arrays, with stacked ``(n_layers, ...)`` layer leaves and ``(in, out)``
     weights."""
     p = Transformer(cfg, torch.device("cpu"))
-
-    def put(dst: torch.Tensor, src) -> None:
-        src = np.asarray(src, dtype=np.float32)
+    named = named_from_numpy(cfg, np_params)
+    for name, dst in p.named_parameters():
+        src = np.asarray(named[name], dtype=np.float32)
         if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {src.shape} does not fit {tuple(dst.shape)}")
+            raise ValueError(f"{name}: shape {src.shape} does not fit {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(src))
-
-    put(p.embed, np_params["embed"])
-    if p.head is not None:
-        put(p.head, np_params["head"])
-    put(p.final_norm.scale, np_params["final_norm"]["scale"])
-    layers = np_params["layers"]
-    for i, blk in enumerate(p.blocks):
-        put(blk.attn_norm.scale, layers["attn_norm"]["scale"][i])
-        put(blk.mlp_norm.scale, layers["mlp_norm"]["scale"][i])
-        names = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv") if cfg.qkv_bias else ())
-        for name in names:
-            put(getattr(blk.attn, name), layers["attn"][name][i])
-        for name in ("w_gate", "w_up", "w_down"):
-            put(getattr(blk.mlp, name), layers["mlp"][name][i])
     return p
 
 
-def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """tokens (b, s) -> final hidden states (b, s, d)."""
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
+            remat: str = "dots") -> torch.Tensor:
+    """tokens (b, s) -> final hidden states (b, s, d). Where a gradient is
+    being recorded, each block runs under ``torch.utils.checkpoint`` with
+    the ``remat`` policy (see :data:`REMAT_POLICIES`)."""
+    context_fn = REMAT_POLICIES[remat]
     x = cm.embed(params, tokens)
     for blk in params.blocks:
-        x = blk(x)
+        if context_fn is None or not torch.is_grad_enabled():
+            x = blk(x)
+        else:
+            x = checkpoint(blk, x, use_reentrant=False, context_fn=context_fn)
     return cm.rms_norm(x, params.final_norm.scale)
+
+
+def loss_fn(params: Transformer, batch: Mapping[str, torch.Tensor], cfg: ArchConfig,
+            remat: str = "dots") -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` (b, s + 1)."""
+    tokens = batch["tokens"]
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    x = forward(params, inp, cfg, remat=remat)
+    return cm.lm_loss(params, x, labels, cfg)
 
 
 # ---------------------------------------------------------------------------

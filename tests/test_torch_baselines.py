@@ -10,6 +10,7 @@ import torch
 import repro.core as jc
 from repro_torch import core as tc
 from test_torch_tuner import _space, _toy_objective, _trajectory
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 # the GP baselines at a reduced candidate set so that their five GP rounds
 # stay cheap (120 fit steps, as in the paper's setting); one seed each for
@@ -25,14 +26,6 @@ CASES = [
     ("opentuner", {}, 15, 0),
     ("opentuner", {}, 15, 3),
 ]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_kw(name, kw):

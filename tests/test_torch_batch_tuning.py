@@ -19,6 +19,7 @@ from repro_torch.vdms import (
 )
 from repro_torch.vdms import engine
 from torch_parity import ReferenceDraws
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 @pytest.fixture(scope="module")

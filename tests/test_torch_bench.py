@@ -9,7 +9,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 import repro.core as jc
 from benchmarks import bench_ablation as j_ablation
@@ -37,14 +36,7 @@ from repro_torch.bench import run as bench_run
 from repro_torch.vdms import registered_names
 from test_torch_tuner import _space, _toy_objective
 from torch_parity import SEVEN, ReferenceDraws
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 # ---------------------------------------------------------------------------

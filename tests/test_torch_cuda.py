@@ -321,6 +321,99 @@ def test_flash_attention_bf16_strided_window_and_empty_rows(dev, dh):
 
 
 # ---------------------------------------------------------------------------
+# flash attention backward and the forward's log-sum-exp
+# ---------------------------------------------------------------------------
+# lse: f32 sums over up to 1,200 keys in other orders, at |lse| < 10
+LSE_TOL = 1e-4
+# gradients, relative to the largest |gradient|: f32 sums of up to 1,200
+# products in other orders; bf16, one rounding of the output (2**-8) doubled
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
+
+
+def _check_grads(got, want, dtype, what):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, (what, name)
+        a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+        scale = max(float(np.abs(b).max()), 1e-6)
+        assert np.abs(a - b).max() <= GRAD_TOL[dtype] * scale, (what, name, np.abs(a - b).max(), scale)
+
+
+def _bwd_case(dev, dtype, b, sq, sk, hq, hkv, dh, causal, window, seed=0):
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_torch,
+                                                     flash_attention_cuda,
+                                                     flash_attention_lse_torch)
+
+    q, k, v = _attn_inputs(dev, dtype, b, sq, sk, hq, hkv, dh, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = (torch.rand(q.shape, generator=g, device=dev) * 2 - 1).to(dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    out_ref, lse_ref = flash_attention_lse_torch(q, k, v, causal, window)
+    seen = torch.isfinite(lse_ref)
+    assert torch.equal(seen, torch.isfinite(lse))
+    assert float((lse - lse_ref)[seen].abs().max()) <= LSE_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(), out_ref.float().cpu().numpy(),
+                               atol=ATTN_TOL[dtype], rtol=0)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, window)
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_torch(q, k, v, out, lse, dout, causal, window)
+    _check_grads(got, want, dtype, (b, sq, sk, hq, hkv, dh, causal, window))
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_bwd_kernel(dev, dtype, mask, dh):
+    """The backward kernel against the plain backward on the same (out,
+    lse), and the forward's lse against the plain one: fewer queries than
+    keys (tail offset 70), ragged tiles, a window of 48 inside a tile."""
+    _bwd_case(dev, dtype, 2, 130, 200, 8, 2, dh, mask != "bidirectional",
+              48 if mask == "window" else None, seed=dh)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 4), (8, 2), (32, 2)],
+                         ids=["group1", "group2", "group4", "group16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_bwd_kernel_gqa_groups(dev, dtype, hq, hkv):
+    """dK and dV summed over groups of 1, 2, 4 and 16 query heads; 1,200
+    keys (19 tiles), a window of 300 whose edge falls inside a tile."""
+    _bwd_case(dev, dtype, 1, 200, 1200, hq, hkv, 64, True, 300, seed=hq)
+
+
+def test_flash_attention_bwd_kernel_rows_that_see_no_key(dev):
+    """More queries than keys: the first 60 causal rows see no key, their
+    lse is -inf and their dq is 0."""
+    _bwd_case(dev, torch.float32, 2, 130, 70, 4, 2, 32, True, None, seed=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_autograd_launches_both_kernels(dev, dtype):
+    """``ops.flash_attention`` on CUDA tensors that need a gradient goes
+    through ``FlashAttention``: one forward and one backward launch, the
+    gradients those of autograd over the plain forward. Without a gradient
+    only the forward runs."""
+    q, k, v = _attn_inputs(dev, dtype, 2, 96, 96, 8, 2, 64, seed=11)
+    dout = (torch.rand(q.shape, device=dev) * 2 - 1).to(dtype)
+    grads = []
+    for impl in (None, "torch"):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = ops.launch_counts()
+        out = ops.flash_attention(*leaves, causal=True, window=40, impl=impl)
+        out.backward(dout)
+        after = ops.launch_counts()
+        launched = {n: after[n] - before[n] for n in ("flash_attention", "flash_attention_bwd")}
+        assert launched == ({"flash_attention": 1, "flash_attention_bwd": 1} if impl is None
+                            else {"flash_attention": 0, "flash_attention_bwd": 0})
+        grads.append([t.grad for t in leaves])
+    _check_grads(grads[0], grads[1], dtype, "autograd")
+    before = ops.launch_counts()["flash_attention_bwd"]
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention_bwd"] == before
+
+
+# ---------------------------------------------------------------------------
 # pq_adc: the same summing order as the plain version, so exact
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("q,n,m,c", [(13, 1000, 5, 256), (128, 8192, 8, 256), (9, 700, 8, 16),

@@ -18,6 +18,7 @@ from repro_torch.distributed import (
     segment_placement,
     use_rules,
 )
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 def _mesh(**axes):

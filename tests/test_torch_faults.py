@@ -39,20 +39,11 @@ from repro_torch.vdms import (
 )
 from repro_torch.vdms.faults import FAULT_KINDS, HEALTH_CODE, HEALTH_STATES
 from torch_parity import ReferenceDraws
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 #: wall-clock result keys (differ run to run even in analytic mode)
 WALL_KEYS = {"build_time", "compile_time", "upload_s"}
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    # many small ops: one intra-op thread a worker keeps parallel test workers
-    # from oversubscribing the cores
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _det(result):

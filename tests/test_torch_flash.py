@@ -14,6 +14,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import KernelContractError
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_torch
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 # tests/test_kernels.py's FA_CASES: (b, sq, sk, hq, hkv, dh, causal, window)
 FA_CASES = [

@@ -8,25 +8,15 @@ degraded search of a quarantined segment is this path with the
 quarantined rows cleared from the alive mask."""
 import numpy as np
 import pytest
-import torch
 
 import repro.vdms as jv
 from repro.vdms import ivf_pqr as j_pqr
 from repro_torch import vdms as V
 from repro_torch.vdms import ivf_pqr
 from torch_parity import ReferenceDraws
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    # many small ops: one intra-op thread a worker keeps parallel test workers
-    # from oversubscribing the cores
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 BASE = {

@@ -3,22 +3,12 @@ models the residuals, ``predict`` adds the prior back, ``condition_on`` and
 ``with_capacity`` carry it; without a prior the fit is what it was."""
 import numpy as np
 import pytest
-import torch
 
 from repro.core.gp import GP as JGP
 from repro_torch.core.gp import GP, GPParams
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 STEPS = 60  # one Adam length for every fit: one compiled fit in the JAX package
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    # the Adam loop is hundreds of tiny ops: one intra-op thread a worker
-    # keeps parallel test workers from oversubscribing the cores
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _data(seed, n, d=3):

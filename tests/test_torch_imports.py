@@ -62,6 +62,12 @@ TUNING_STACK = {
     "repro_torch.fleet.transfer": "apply_transfer",
     "repro_torch.fleet.fleet": "FleetSession",
     "repro_torch.bench.bench_fleet": "run",
+    "repro_torch.models.transformer": "loss_fn",
+    "repro_torch.optim.adamw": "apply_updates",
+    "repro_torch.optim.compression": "compress_grads",
+    "repro_torch.checkpoint.manager": "CheckpointManager",
+    "repro_torch.data.pipeline": "TokenPipeline",
+    "repro_torch.launch.train": "run",
 }
 
 

@@ -11,6 +11,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops
 from torch_parity import TOL, assert_topk_match
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 IMPLS = ("xla", "pallas_interpret")
 
@@ -231,4 +232,4 @@ def test_dispatch_cpu_uses_plain_version():
     with pytest.raises(ValueError, match="unknown impl"):
         ops.batched_ip(q, x, impl="triton")
     assert set(ops.launch_counts()) == {"distance", "fused_ivf_sq8_topk", "fused_ivf_pq_topk",
-                                        "pq_adc", "flash_attention"}
+                                        "pq_adc", "flash_attention", "flash_attention_bwd"}

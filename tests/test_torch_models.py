@@ -22,6 +22,7 @@ from repro.models import build_model as jbuild_model, common as jcm, transformer
 from repro_torch.configs import get_arch, list_archs, reduce
 from repro_torch.launch.serve import generate, run
 from repro_torch.models import build_model, common as cm, params_from_numpy, transformer as tr
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 DENSE = ("chameleon-34b", "deepseek-67b", "glm4-9b", "internlm2-20b", "qwen2.5-32b")
 # f32 on both sides; the sums run in other orders (XLA vs PyTorch CPU kernels,

@@ -30,6 +30,7 @@ from repro_torch.vdms import (
 from repro_torch.vdms import ivf_pqr
 from repro_torch.vdms.registry import REGISTRY
 from torch_parity import assert_topk_match, port_dataset, reference_dataset
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 # the plain version sums the m terms in order; XLA and the one-hot matrix
 # products of the Pallas kernel may associate them otherwise

@@ -25,6 +25,7 @@ from repro_torch.vdms import (
 )
 from repro_torch.vdms.registry import REGISTRY
 from torch_parity import SEVEN, default_config, port_dataset
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 @pytest.fixture(autouse=True)

@@ -10,6 +10,7 @@ from hypothesis import given, settings, strategies as st
 import repro.vdms as jv
 from repro_torch.vdms import live_seg_size, make_trace, plan_segments, replay_trace
 from repro_torch.vdms.workload import OP_DELETE
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 def _same_plan(*args):

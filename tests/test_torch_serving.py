@@ -47,6 +47,7 @@ from repro_torch.vdms import (
 )
 from repro_torch.vdms.workload import time_aware_ground_truth
 from torch_parity import ReferenceDraws
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 CPU = "cpu"
 LIVE_CFG = dict(
@@ -61,16 +62,6 @@ LIVE_CFG = dict(
     kmeans_iters=4,
     storage_bf16=False,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    # many small ops: one intra-op thread a worker keeps parallel test workers
-    # from oversubscribing the cores
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _vectors(n, dim=16, seed=0):

@@ -32,14 +32,7 @@ from repro_torch.vdms import engine as tengine
 from repro_torch.vdms import ivf_pqr
 from repro_torch.vdms.kmeans import init_indices, kmeans, kmeans_l2
 from torch_parity import SEVEN, TOL, ReferenceDraws, default_config, reference_dataset
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from repro_torch.vdms.sharded import SHARD_INVARIANTS, ShardedVDMS, shard_invari
 from repro_torch.vdms.workload import make_query_streams, poisson_arrivals, replay_query_streams
 from torch_parity import (ReferenceDraws, assert_ids_match, assert_topk_match, carry,
                           default_config, port_dataset, reference_dataset, reference_instance)
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 CPU = "cpu"
 
@@ -38,16 +39,6 @@ BASE = {
     "search_batch_size": 16, "topk_merge_width": 32, "kmeans_iters": 3,
     "storage_bf16": False,
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    # many small ops: one intra-op thread a worker keeps parallel test workers
-    # from oversubscribing the cores
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

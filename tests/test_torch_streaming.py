@@ -33,6 +33,7 @@ from repro_torch.vdms import (
     unregister_family,
 )
 from torch_parity import ReferenceDraws
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 LIVE_CFG = dict(
     index_type="IVF_FLAT",

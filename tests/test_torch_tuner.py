@@ -18,6 +18,7 @@ from repro_torch.core import acquisition_torch as tacq
 from repro_torch.core.gp import GP, GPParams, GPState, _posterior_padded
 from repro_torch.launch import quickstart
 from repro_torch.vdms import make_dataset
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 def _toy_objective(cfg):
@@ -33,14 +34,6 @@ def _toy_objective(cfg):
 
 # the fits and the Adam loop are hundreds of tiny ops; threads only add
 # contention on a shared host
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _front_data(seed, n=40):
     rng = np.random.default_rng(seed)
     Y = rng.random((n, 2)) * np.array([1000.0, 1.0])

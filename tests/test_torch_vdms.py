@@ -37,6 +37,7 @@ from torch_parity import (
     reference_dataset,
     reference_instance,
 )
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 
 def test_space_matches_reference():

@@ -20,6 +20,7 @@ from repro_torch.vdms import (
 )
 from repro_torch.vdms import workload as tw
 from repro_torch.vdms.datasets import default_dim, raw_vectors
+from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 
 FIELDS = ("base", "kinds", "payload", "times", "inserts", "queries")
 FLAT_CFG = dict(

@@ -8,9 +8,37 @@ are either built once by the JAX package and carried across with
 package's draws injected (:class:`ReferenceDraws`). The reference builds are
 cached per process, so the test modules that share a worker share them.
 """
+import contextlib
 import functools
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for torch and for the BLAS under numpy while a
+    module that imports this fixture runs. The suite runs in several worker
+    processes on one host; there the spinning BLAS and OpenMP threads of
+    every worker slow the many small products of the tuner and GP tests
+    several-fold (one trajectory test took 57 s with numpy's default
+    OpenBLAS threads and 17 s with one, on an 8-core host with five other busy
+    processes). Without ``threadpoolctl`` only torch is pinned: the tests
+    run slower, not differently."""
+    import torch
+
+    try:
+        from threadpoolctl import threadpool_limits
+        blas = threadpool_limits(limits=1, user_api="blas")
+    except ImportError:
+        blas = contextlib.nullcontext()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with blas:
+            yield
+    finally:
+        torch.set_num_threads(n)
 
 SEVEN = ("FLAT", "IVF_FLAT", "IVF_SQ8", "IVF_PQ", "HNSW", "SCANN", "AUTOINDEX")
 # n = 3000 with 1024-vector segments: two full segments and a sealed
