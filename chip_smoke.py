@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   2. the CUDA kernels built from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all at once, with each kernel's registers and
      spills; when the parent commit's kernel sources are unpacked under
-     ``build/parent``, its two fused IVF kernels and ``pq_adc`` beside them;
+     ``build/parent``, the parent's flash backward beside them;
   3. each kernel held against its plain PyTorch version on the card, at the
      shapes its path gives it (glove-100-angular size, the defaults of FLAT,
      IVF_SQ8 and IVF_PQ; ``pq_adc`` at 1,024 queries x 32 IVF_PQ segments of
@@ -18,10 +18,8 @@ Phases, each fatal on failure:
      their type, the H100 SXM data-sheet figures); the two fused kernels
      also at two corners of the search space (segments of 8,192, nprobe 128,
      k 128, nlist 128 and 512); ``pq_adc`` also at the kernel benchmark's
-     shape (128 x 8,192, m 8); the parent's kernels, when built, held against
-     the same plain versions and timed in turns with the new ones (new, old,
-     old, new): the fused ones at the defaults and both corners, ``pq_adc``
-     at both of its shapes with int32 and with byte codes;
+     shape (128 x 8,192, m 8); each pass of the bf16 flash backward timed at
+     glm4-9b's training shape under ``torch.profiler`` (for phase 12);
   4. the evaluation path: ``VDMSTuningEnv(dataset, mode="wall")`` over the
      defaults of all seven index families in the session's order, with the
      kernels' launch counters reset just before and read just after;
@@ -107,7 +105,12 @@ Phases, each fatal on failure:
      autograd Function) against autograd of the plain forward at glm4-9b's
      training shape (4 x 2048, 32/2 heads, dh 128, causal) in bf16 and f32,
      the forward's log-sum-exp against the plain one, the kernel timed beside
-     the plain backward, autograd of SDPA and its bound;
+     the plain backward, autograd of SDPA and its bound; in bf16 the kernel
+     and, when built, the parent's held against the plain backward on the
+     same (out, lse), two launches bit-equal, and the parent timed in turns
+     with it (new, old, old, new); each pass's device time (delta, dK/dV,
+     the split sum, dQ), from one ``torch.profiler`` window, is taken in
+     phase 3, before any other window;
      ``repro_torch.launch.train.run`` on glm4-9b at full width, depth cut to
      8 layers, 4 x 2048 tokens, 10 steps (finite losses from near ln(vocab),
      falling; the backward kernel launched 8 x 10 times, counters reset just
@@ -295,7 +298,7 @@ def config_case(ds, cfg, device, k=None):
                 check=lambda got, want: check_topk(f"{name} at {shape}", got, want),
                 library=None,
                 work=(nbytes(*args) + 2 * n_seg * qa.shape[0] * k * 4, probe_flops + score_flops),
-                shape=shape, args=args, m=st.get("m"), common=common)
+                shape=shape, args=args, m=st.get("m"))
 
 
 # Corners of the search space for the fused kernels: segments of 8,192 and
@@ -305,11 +308,10 @@ CORNERS = [dict(segment_max_size=8192, nlist=nlist, nprobe=128, topk_merge_width
 CORNER_K = 128
 
 
-def kernel_checks(ds, space, device, parent=None):
+def kernel_checks(ds, space, device):
     """Phase 3: each kernel against its plain version at the main path's
     shapes, on the data of the seven defaults' kernel-backed families; the
-    fused kernels also at the corners; with the parent's kernels, the fused
-    ones timed beside the parent's at the defaults and the corners."""
+    fused kernels also at the corners."""
     import torch
 
     from repro_torch.kernels import ops
@@ -320,9 +322,6 @@ def kernel_checks(ds, space, device, parent=None):
         got, want = case["call"](None), case["call"]("torch")
         torch.cuda.synchronize()
         err = case["check"](got, want)
-        old = None
-        if fam != "FLAT" and parent:
-            old = fused_old_against_new(case, parent, 10)
         del got, want
         if fam == "FLAT":  # the other epilogue and the bf16 storage
             q, data = case["q"], case["data"]
@@ -340,17 +339,17 @@ def kernel_checks(ds, space, device, parent=None):
             ms=cuda_ms(lambda: call(None), n_ms),
             plain_ms=cuda_ms(lambda: call("torch"), n_plain, warmup=plain_warmup),
             library_ms=cuda_ms(case["library"], 20) if case["library"] else None,
-            bound_ms=bms, bound_by=by, shape=case["shape"], old_against_new=old)
+            bound_ms=bms, bound_by=by, shape=case["shape"])
         if fam == "IVF_PQ":  # pq_adc at the evaluation path's scale: these queries'
             # tables against the codes of the first 32 segments
             lut, codes = case["args"][1], case["args"][2]
-            pq["evaluation"] = pq_adc_check(lut, codes[:32].reshape(-1, case["m"]).int(), parent)
+            pq["evaluation"] = pq_adc_check(lut, codes[:32].reshape(-1, case["m"]).int())
         del case, call
     # pq_adc at the kernel benchmark's shape: 128 tables (m 8, c 256) x 8,192 codes
     g = torch.Generator(device=device).manual_seed(0)
     pq["benchmark"] = pq_adc_check(torch.randn(128, 8, 256, generator=g, device=device),
                                    torch.randint(0, 256, (8192, 8), generator=g, device=device,
-                                                 dtype=torch.int32), parent)
+                                                 dtype=torch.int32))
     torch.cuda.empty_cache()
     for name, r in rows.items():
         print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -366,10 +365,8 @@ def kernel_checks(ds, space, device, parent=None):
             err = case["check"](got, want)
             del got, want
             bms, by = bound(*case["work"])
-            old = fused_old_against_new(case, parent, 5, 1) if parent else None
             row = dict(kernel=case["name"], shape=case["shape"], max_abs_err=err,
-                       ms=cuda_ms(lambda: case["call"](None), 5), bound_ms=bms, bound_by=by,
-                       old_against_new=old)
+                       ms=cuda_ms(lambda: case["call"](None), 5), bound_ms=bms, bound_by=by)
             print(f"  {case['name']} corner {case['shape']}: kernel {row['ms']:.4f} ms, bound "
                   f"{bms:.4f} ms ({by}), max abs err {err:.3e}", flush=True)
             corners.append(row)
@@ -378,14 +375,12 @@ def kernel_checks(ds, space, device, parent=None):
     return rows, corners, pq
 
 
-def pq_adc_check(lut, codes, parent=None):
+def pq_adc_check(lut, codes):
     """``pq_adc`` against its plain version (the same summing order, so the
     difference must be 0), timed beside the plain version and the one-hot
     ``torch.matmul`` (the one-hot built once, outside the timing), with int32
-    and with byte codes; with the parent's kernel, that one held against the
-    plain version too and old and new timed in turns (new, old, old, new) for
-    each code type, each time printed with its share of the byte bound. Its
-    kernels-line row comes from the kernel benchmark, pq_adc's own path."""
+    and with byte codes. Its kernels-line row comes from the kernel
+    benchmark, pq_adc's own path."""
     import torch
 
     from repro_torch.bench.bench_kernels import onehot_codes
@@ -419,24 +414,6 @@ def pq_adc_check(lut, codes, parent=None):
           f"({by}), launches in this check {ops.launch_counts()['pq_adc'] - before}", flush=True)
     res = dict(shape=f"lut {tuple(lut.shape)} codes {tuple(codes.shape)}", max_abs_err=err,
                ms=ms, u8_ms=u8_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms)
-    if parent:
-        for name, cc in (("int32", codes), ("uint8", codes8)):
-            old = parent_pq_adc(parent, lut, cc)
-            torch.cuda.synchronize()
-            if not torch.equal(old, want):
-                fail(f"parent pq_adc ({name} codes) differs from the plain version")
-            byte_ms = bound(nbytes(lut, cc, got), 0.0)[0]
-            new_call = lambda: ops.pq_adc(lut, cc)  # noqa: E731
-            old_call = lambda: parent_pq_adc(parent, lut, cc)  # noqa: E731
-            t = [cuda_ms(new_call, 20), cuda_ms(old_call, 20), cuda_ms(old_call, 20),
-                 cuda_ms(new_call, 20)]
-            print(f"  pq_adc {name} codes: new {t[0]:.4f} / {t[3]:.4f} ms, parent {t[1]:.4f} / "
-                  f"{t[2]:.4f} ms; byte bound {byte_ms:.4f} ms, share new "
-                  f"{byte_ms / t[0]:.3f} / {byte_ms / t[3]:.3f}, parent {byte_ms / t[1]:.3f} / "
-                  f"{byte_ms / t[2]:.3f}", flush=True)
-            res[f"old_against_new_{name}"] = dict(new_ms=[t[0], t[3]], parent_ms=[t[1], t[2]],
-                                                  byte_bound_ms=byte_ms)
-            del old
     del got, want
     return res
 
@@ -446,7 +423,7 @@ def pq_adc_check(lut, codes, parent=None):
 # (``git archive <parent> src/repro_torch/kernels/csrc | tar -x -C build/parent``),
 # so that old and new are timed on one card in one call.
 PARENT_SRC = ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" / "csrc"
-PARENT_KERNELS = ("fused_scan", "fused_adc", "pq_adc")
+PARENT_KERNELS = ("flash_attention_bwd",)
 
 
 def start_parent_build():
@@ -470,7 +447,7 @@ def finish_parent_build(procs):
     """Wait for the parent builds; returns name -> loaded library, or None."""
     import ctypes
 
-    from repro_torch.kernels import fused_adc, fused_scan
+    from repro_torch.kernels import flash_attention
 
     if procs is None:
         return None
@@ -480,79 +457,28 @@ def finish_parent_build(procs):
         if proc.returncode != 0:
             fail(f"parent {n}: nvcc exited {proc.returncode}\n{log}")
         libs[n] = ctypes.CDLL(str(so))
-    # the parent's pq_adc: lut, uint8 codes, out, q, n, m, c, stream
-    old_pq_sig = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for fn, sig in ((libs["fused_scan"].fused_ivf_sq8_topk, fused_scan._SIG),
-                    (libs["fused_adc"].fused_ivf_pq_topk, fused_adc._SIG),
-                    (libs["pq_adc"].pq_adc, old_pq_sig)):
-        fn.argtypes, fn.restype = sig, ctypes.c_int
+    # the parent's bf16 entry: q, k, v, dout, lse, delta, dq, dk, dv, sizes, stream
+    fn = libs["flash_attention_bwd"].flash_attention_bwd_bf16
+    fn.argtypes, fn.restype = flash_attention._BWD_SIG, ctypes.c_int
     return libs
 
 
-def parent_pq_adc(parent, lut, codes):
-    """The parent's ``pq_adc`` as its wrapper called it: int32 codes (or
-    c < 256) range-checked on the host, then converted to bytes."""
+def parent_flash_bwd(parent, q, k, v, out, lse, dout):
+    """The parent's bf16 flash backward as its wrapper called it: contiguous
+    copies, ``delta = rowsum(dout * out)`` in f32 before the launch."""
     import torch
 
     from repro_torch.kernels import _build
 
-    q, m, c = lut.shape
-    n = codes.shape[0]
-    out = torch.empty((q, n), dtype=torch.float32, device=lut.device)
-    if codes.dtype != torch.uint8 or c < 256:
-        wide = codes.int()
-        if bool(((wide < 0) | (wide >= c)).any()):
-            fail("parent pq_adc: codes out of range")
-    codes8 = codes.to(torch.uint8).contiguous()
-    _build.check(parent["pq_adc"].pq_adc(lut.data_ptr(), codes8.data_ptr(), out.data_ptr(), q, n,
-                                         m, c, torch.cuda.current_stream().cuda_stream),
-                 "parent pq_adc")
-    return out
-
-
-def parent_fused(parent, name, args, *, nprobe, k, mask_dead):
-    """The parent's fused kernel ``name`` on the wrapper's arguments."""
-    import torch
-
-    from repro_torch.kernels import _build
-
-    q, members = args[0], args[4]
-    b, d = q.shape
-    n_seg, s, _ = args[2 if name == "fused_ivf_pq_topk" else 1].shape
-    _, nlist, cap = members.shape
-    if name == "fused_ivf_sq8_topk":
-        fn, sizes = parent["fused_scan"].fused_ivf_sq8_topk, (b, n_seg, s, d)
-    else:
-        _, m, c = args[1].shape
-        fn, sizes = parent["fused_adc"].fused_ivf_pq_topk, (b, n_seg, s, d, m, c)
-    lids = torch.empty((n_seg, b, k), dtype=torch.int32, device=q.device)
-    sims = torch.empty((n_seg, b, k), dtype=torch.float32, device=q.device)
-    _build.check(fn(*(t.data_ptr() for t in args), lids.data_ptr(), sims.data_ptr(), *sizes, nlist,
-                    cap, min(nprobe, nlist), k, int(mask_dead),
-                    torch.cuda.current_stream().cuda_stream), f"parent {name}")
-    return lids, sims
-
-
-def fused_old_against_new(case, parent, n, n_old=None):
-    """The parent's fused kernel held against the plain version like the new
-    one, then both timed in turns (new, old, old, new), the parent with
-    ``n_old`` launches a turn (default ``n``). Returns the times."""
-    import torch
-
-    name, common = case["name"], case["common"]
-    want = case["call"]("torch")
-    old_call = lambda: parent_fused(parent, name, case["args"], **common)  # noqa: E731
-    got = old_call()
-    torch.cuda.synchronize()
-    err = check_topk(f"parent {name} at {case['shape']}", got, want)
-    del got, want
-    n_old = n if n_old is None else n_old
-    new_call = lambda: case["call"](None)  # noqa: E731
-    t = [cuda_ms(new_call, n), cuda_ms(old_call, n_old, warmup=0),
-         cuda_ms(old_call, n_old, warmup=0), cuda_ms(new_call, n)]
-    print(f"  {name}: new {t[0]:.4f} / {t[3]:.4f} ms, parent {t[1]:.4f} / {t[2]:.4f} ms "
-          f"(parent max abs err {err:.3e})", flush=True)
-    return dict(new_ms=[t[0], t[3]], parent_ms=[t[1], t[2]], parent_max_abs_err=err)
+    b, sq, hq, dh = q.shape
+    _, sk, hkv, _ = k.shape
+    q, k, v, dout, lse = (t.contiguous() for t in (q, k, v, dout, lse))
+    delta = (dout.float() * out.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.check(parent["flash_attention_bwd"].flash_attention_bwd_bf16(
+        *(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq, dk, dv)), b, sq, sk, hq, hkv, dh, 1, 0,
+        torch.cuda.current_stream().cuda_stream), "parent flash_attention_bwd")
+    return dq, dk, dv
 
 
 # glm4-9b's prefill attention at the serving phase's shape: batch 4, 2048
@@ -1060,6 +986,11 @@ def time_live(live, queries, device, label, batches=None):
     return rows
 
 
+def device_us(e):
+    """A profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
 def profile_live(live, queries, device, label, n_calls=50, per_call=2):
     """``n_calls`` live searches of ``per_call`` queries (the 1 M trace's
     typical search call), first timed alone and then under
@@ -1083,20 +1014,17 @@ def profile_live(live, queries, device, label, n_calls=50, per_call=2):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_us = calls()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
     # the device's own events (kernels, copies): an operator's row repeats
     # the device time of the kernels it launched
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in events)
-    top = sorted(events, key=dev_us, reverse=True)[:6]
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    busy = sum(device_us(e) for e in events)
+    top = sorted(events, key=device_us, reverse=True)[:6]
     row = dict(label=label, n_calls=n_calls, per_call=per_call, wall_ms=plain_us / 1e3,
                profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                idle_share=(1.0 - busy / plain_us) if busy else None,
                profiled_idle_share=(1.0 - busy / wall_us) if busy else None,
-               top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+               top=[(e.key[:60], device_us(e) / 1e3, e.count) for e in top])
     if not busy:
         print(f"  profile {label}: no device time in the trace (not measured)", flush=True)
     else:
@@ -1980,10 +1908,20 @@ STEP_GRAD_RTOL = 2.0**-6
 RESUME = dict(steps=30, interrupt_after=25, ckpt_every=10, seq_len=128, global_batch=8, warmup=2)
 
 
+def grad_errors(got, want):
+    """For each of dq, dk and dv: the max abs difference, its own max
+    |gradient| and the relative L2 difference."""
+    errs = {}
+    for n, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float(), w.float()
+        errs[n] = dict(max_abs_err=float((a - w).abs().max()), max_abs_grad=float(w.abs().max()),
+                       rel_l2=float((a - w).norm() / w.norm()))
+    return errs
+
+
 def flash_bwd_errors(q, k, v, dout):
     """dq, dk and dv of the kernel path (``ops.flash_attention``'s autograd
-    Function) against autograd of the plain forward: for each, the max abs
-    difference, its own max |gradient| and the relative L2 difference."""
+    Function) against autograd of the plain forward (:func:`grad_errors`)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1995,30 +1933,24 @@ def flash_bwd_errors(q, k, v, dout):
         grads.append([t.grad for t in leaves])
         del leaves
     torch.cuda.synchronize()
-    errs = {}
-    for n, got, want in zip(("dq", "dk", "dv"), *grads):
-        got, want = got.float(), want.float()
-        errs[n] = dict(max_abs_err=float((got - want).abs().max()),
-                       max_abs_grad=float(want.abs().max()),
-                       rel_l2=float((got - want).norm() / want.norm()))
-    return errs
+    return grad_errors(*grads)
 
 
-def hold_flash_bwd(name, errs):
+def hold_flash_bwd(name, errs, against="autograd of the plain forward"):
     """Prints each gradient's errors, then fails unless each is within
     ``FLASH_BWD_TOL`` of its own max |gradient| and ``FLASH_BWD_L2`` in
     relative L2."""
     for n, e in errs.items():
         print(f"  flash_attention_bwd {name} {n}: max abs difference {e['max_abs_err']:.3e} of "
-              f"max |{n}| {e['max_abs_grad']:.4f}, relative L2 {e['rel_l2']:.3e} (autograd of "
-              f"the plain forward)", flush=True)
+              f"max |{n}| {e['max_abs_grad']:.4f}, relative L2 {e['rel_l2']:.3e} ({against})",
+              flush=True)
     for n, e in errs.items():
         if not e["max_abs_err"] <= FLASH_BWD_TOL[name] * e["max_abs_grad"]:
             fail(f"flash_attention_bwd {name} {n}: max abs difference {e['max_abs_err']} > "
-                 f"{FLASH_BWD_TOL[name]} x {e['max_abs_grad']}")
+                 f"{FLASH_BWD_TOL[name]} x {e['max_abs_grad']} ({against})")
         if not e["rel_l2"] <= FLASH_BWD_L2[name]:
             fail(f"flash_attention_bwd {name} {n}: relative L2 difference {e['rel_l2']} > "
-                 f"{FLASH_BWD_L2[name]}")
+                 f"{FLASH_BWD_L2[name]} ({against})")
 
 
 def flash_bwd_inputs(dtype, g, device):
@@ -2032,13 +1964,80 @@ def flash_bwd_inputs(dtype, g, device):
     return q, k, v, dout
 
 
-def flash_bwd_check(device):
+# the bf16 backward's launches, by the name of their kernel
+BWD_PASSES = (("fa_bwd_prep", "delta"), ("fa_bwd_dkdv", "dK/dV"), ("fa_bwd_sum", "sum"),
+              ("fa_bwd_dq", "dQ"))
+
+
+def profile_passes(call, n=5):
+    """Each pass's device time a launch (ms), from one ``torch.profiler``
+    window: two warm-up calls (the tracer starts under them, their events
+    dropped), then ``n`` active ones, read when the window closes (the
+    profiler clears a scheduled window's events after it). A pass's time is
+    its kernel's device time over the launches the trace holds, so a launch
+    the tracer lost does not dilute it; any other device work is under
+    "other". None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    time_us, count = {}, {}
+
+    def read(prof):
+        for e in prof.key_averages():
+            # a step's own annotation repeats the device time of its kernels
+            if (e.device_type != torch.autograd.DeviceType.CUDA or device_us(e) <= 0
+                    or e.key.startswith("ProfilerStep")):
+                continue
+            label = next((lb for kn, lb in BWD_PASSES if kn in e.key), "other")
+            time_us[label] = time_us.get(label, 0.0) + device_us(e)
+            count[label] = count.get(label, 0) + e.count
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=n, repeat=1), on_trace_ready=read) as prof:
+        for _ in range(2 + n):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    return {lb: time_us[lb] / count[lb] / 1e3 for lb in time_us} or None
+
+
+def bwd_passes(device):
+    """Phase 3: each pass's device time of the bf16 backward at the training
+    shape (:func:`profile_passes`), printed and kept for phase 12's record.
+    It runs before any other profiler window: after phases 10 and 11 the
+    tracer records no device time, in this process or in a new one."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+
+    q, k, v, dout = flash_bwd_inputs(torch.bfloat16, torch.Generator(device=device).manual_seed(1),
+                                     device)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    passes = profile_passes(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout))
+    if passes is None:
+        print("  flash_attention_bwd bf16 passes: no device time in the trace (not measured)",
+              flush=True)
+    else:
+        print("  flash_attention_bwd bf16 passes at the training shape (device ms a launch of each "
+              "kernel, torch.profiler): " + ", ".join(f"{k_} {ms:.4f}" for k_, ms in passes.items()),
+              flush=True)
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+    return passes
+
+
+def flash_bwd_check(device, parent=None):
     """Phase 12 (a): the backward kernel, through ``ops.flash_attention``'s
     autograd Function, against autograd of the plain forward at glm4-9b's
     training shape in bf16 and f32, each gradient held on its own; the
     forward's lse against the plain one; the kernel timed beside the plain
     backward, autograd of SDPA (kv heads expanded, summed back over each
-    group) and the bound."""
+    group) and the bound. In bf16 also: the kernel (and the parent's, when
+    built) against the plain backward on the same (out, lse); two launches
+    bit-equal; the parent timed in turns with the kernel (new, old, old,
+    new). Each pass's device time is measured in phase 3 (:func:`bwd_passes`)."""
     import torch
     import torch.nn.functional as F
 
@@ -2062,7 +2061,37 @@ def flash_bwd_check(device):
         if not lse_err <= LSE_TOL:
             fail(f"flash_attention lse {name}: max abs difference {lse_err} > {LSE_TOL}")
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout), 5)
+        call = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout)  # noqa: E731
+        extra = {}
+        if dtype == torch.bfloat16:
+            want = flash_attention_bwd_torch(q, k, v, out, lse, dout)
+            first, second = call(), call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(first, second))
+            print(f"  flash_attention_bwd bf16: two launches bit-equal in dq, dk and dv: {same}",
+                  flush=True)
+            if not same:
+                fail("flash_attention_bwd bf16: two launches on the same inputs differ")
+            extra["vs_plain_bwd"] = grad_errors(first, want)
+            hold_flash_bwd(name, extra["vs_plain_bwd"], "the plain backward on the same out, lse")
+            del first, second
+            if parent:
+                old_call = lambda: parent_flash_bwd(parent, q, k, v, out, lse, dout)  # noqa: E731
+                extra["parent_vs_plain_bwd"] = grad_errors(old_call(), want)
+                hold_flash_bwd(name, extra["parent_vs_plain_bwd"],
+                               "the parent kernel against the plain backward on the same out, lse")
+            del want
+            torch.cuda.empty_cache()
+            if parent:
+                t = [cuda_ms(call, 5), cuda_ms(old_call, 3, warmup=1), cuda_ms(old_call, 3, warmup=0),
+                     cuda_ms(call, 5)]
+                extra["new_ms"], extra["parent_ms"] = [t[0], t[3]], [t[1], t[2]]
+                print(f"  flash_attention_bwd bf16 in turns: new {t[0]:.4f} / {t[3]:.4f} ms, parent "
+                      f"{t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+            else:
+                print("  flash_attention_bwd bf16: build/parent not unpacked; the parent kernel's "
+                      "turns skipped", flush=True)
+        ms = cuda_ms(call, 5)
         plain_ms = cuda_ms(lambda: flash_attention_bwd_torch(q, k, v, out, lse, dout), 2, warmup=1)
         torch.cuda.empty_cache()
         # the library: autograd of SDPA over (b, h, s, dh) with the kv heads
@@ -2078,7 +2107,7 @@ def flash_bwd_check(device):
         bms, by = bound(nbytes(q, k, v, out, dout, lse) + nbytes(q, k, v), flops, peak)
         res[name] = dict(grads=errs, max_abs_err=max(e["max_abs_err"] for e in errs.values()),
                          lse_err=lse_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bms, bound_by=by)
+                         bound_ms=bms, bound_by=by, **extra)
         print(f"  flash_attention_bwd {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {bms:.4f} ms ({by}, {flops / 1e9:.1f} GFLOP)",
               flush=True)
@@ -2159,7 +2188,7 @@ def hold_step_grads(kernel_grads, plain_grads):
     return worst
 
 
-def training_phase(device):
+def training_phase(device, parent=None):
     """Phase 12: (a) the flash backward at glm4-9b's training shape; (b)
     ``launch.train.run`` on glm4-9b at full width, 8 layers, 4 x 2048
     tokens, 10 steps, counters reset just before and read just after; (c)
@@ -2182,7 +2211,7 @@ def training_phase(device):
 
     out = {}
     t0 = time.perf_counter()
-    row, out["flash_bwd"] = flash_bwd_check(device)
+    row, out["flash_bwd"] = flash_bwd_check(device, parent)
     print(f"  (a) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (b) the trainer at full width
@@ -2322,8 +2351,10 @@ def main() -> int:
     bwd = _build.load("flash_attention_bwd")
     print(f"  dynamic shared memory per block: flash bf16 (dh 128) "
           f"{_build.load('flash_attention').flash_attention_bf16_smem(128)} B; flash backward "
-          f"(dh 128) dK/dV {bwd.flash_attention_bwd_smem(128, 1)} B, dQ "
-          f"{bwd.flash_attention_bwd_smem(128, 0)} B; distance at "
+          f"(dh 128) bf16 dK/dV {bwd.flash_attention_bwd_bf16_smem(128, 1)} B, dQ "
+          f"{bwd.flash_attention_bwd_bf16_smem(128, 0)} B, f32 dK/dV "
+          f"{bwd.flash_attention_bwd_smem(128, 1)} B, dQ {bwd.flash_attention_bwd_smem(128, 0)} B; "
+          f"distance at "
           f"B = 32, f32: {_build.load('distance').distance_smem(32)} B", flush=True)
     sq8, pq = _build.load("fused_scan"), _build.load("fused_adc")
     print(f"  fused SQ8 (d 100, nlist 128, k 64) {sq8.fused_ivf_sq8_topk_smem(100, 128, 64)} B; "
@@ -2348,8 +2379,9 @@ def main() -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     print("[3] kernels against plain versions", flush=True)
-    rows, corners, pq_adc_runs = kernel_checks(ds, space, device, parent)
+    rows, corners, pq_adc_runs = kernel_checks(ds, space, device)
     rows["flash_attention"] = flash_check(device)
+    passes_ms = bwd_passes(device)
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. the evaluation path
@@ -2456,7 +2488,8 @@ def main() -> int:
     print(f"[12] training: the flash backward at glm4-9b's training shape; glm4-9b at full "
           f"width ({TRAIN_DEPTH} layers) for {TRAIN['steps']} steps; kernel step against plain "
           f"step; resume", flush=True)
-    rows["flash_attention_bwd"], train_launches, training = training_phase(device)
+    rows["flash_attention_bwd"], train_launches, training = training_phase(device, parent)
+    training["flash_bwd"]["bf16"]["passes_ms"] = passes_ms
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2471,9 +2504,7 @@ def main() -> int:
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
                       "serve": serve, "efficiency": efficiency, "streaming": streaming,
                       "faults": faults, "sharded": sharded, "training": training,
-                      "fused_old_against_new": {
-                          n: r.get("old_against_new") for n, r in rows.items()
-                          if n.startswith("fused")}, "corners": corners, "pq_adc": pq_adc_runs,
+                      "corners": corners, "pq_adc": pq_adc_runs,
                       "card": card,
                       "total_s": time.perf_counter() - t_all}))
     print(json.dumps({"kernels": kernels}))

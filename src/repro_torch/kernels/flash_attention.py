@@ -44,12 +44,20 @@ tiles without loading them (half the tiles at causal prefill).
 
 The backward is five products over the visible half, 344 GFLOP at glm4-9b's
 training shape (b 4 x 2048, the heads above): 0.35 ms at the bf16
-tensor-core peak, 5.1 ms at the f32 peak. Its first kernel is simple and
-deterministic (no atomics): one pass per (kv head, key tile) sums dK and dV
-over the query heads of the group in registers, one pass per (query head,
-query tile) sums dQ, both on the f32 CUDA cores with bf16 widened as it is
-staged. ``delta = rowsum(dO * O)`` is one plain reduction before it, as the
-JAX package computes it outside its block loop.
+tensor-core peak, 5.1 ms at the f32 peak, and deterministic (no atomics:
+every sum has a fixed order). bf16 goes to the tensor cores in four
+launches: a pre-pass writes ``delta = rowsum(dO * O)`` and lse in the log2
+domain per (head, query) row; a dK/dV kernel per 128 keys of a kv head
+(K and V loaded once by TMA, Q, dO and the rows' lse/delta streamed
+through a ring, S^T, dP^T, dV += P^T.dO and dK += dS^T.Q by ``wgmma``, the
+GQA sum in f32 registers) whose group of query heads is split over
+``nsplit`` blocks by :func:`bwd_plan` to balance the causal wave, the
+partials summed by a short pass in split order; a dQ kernel in the
+forward's block shape (K and V tiles through a TMA ring, S, dP and dQ +=
+dS.K by ``wgmma``). P and dS are rounded to bf16 only as operands of their
+products. f32 stays on the f32 CUDA cores (TF32 would break the f32 parity):
+one pass per (kv head, key tile) for dK and dV, one per (query head, query
+tile) for dQ, after a plain ``delta``.
 """
 from __future__ import annotations
 
@@ -152,6 +160,9 @@ _I64 = ctypes.c_longlong
 _P = ctypes.c_void_p
 _SIG = [_P] * 5 + [ctypes.c_int] * 6 + [_I64] * 9 + [ctypes.c_int] * 2 + [_P]
 _BWD_SIG = [_P] * 9 + [ctypes.c_int] * 8 + [_P]
+_BWD_BF16_SIG = [_P] * 10 + [ctypes.POINTER(_I64), _P]
+#: keys of a bf16 dK/dV block (``KV_KEYS`` in ``csrc/flash_attention_bwd.cu``)
+BWD_KEYS = 128
 
 
 def _lib():
@@ -164,10 +175,38 @@ def _lib():
 
 def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd_f32.argtypes = _BWD_SIG
+    lib.flash_attention_bwd_bf16.argtypes = _BWD_BF16_SIG
     for fn in (lib.flash_attention_bwd_f32, lib.flash_attention_bwd_bf16):
-        fn.argtypes = _BWD_SIG
         fn.restype = ctypes.c_int
     return lib
+
+
+def bwd_plan(b: int, sq: int, sk: int, hq: int, hkv: int, dh: int, sms: int) -> dict:
+    """Launch plan of the bf16 backward. ``nsplit``: blocks that share one
+    128-key tile's group of query heads, doubled (while it divides the
+    group) until the dK/dV grid has three blocks an SM, so that the causal
+    wave, whose first key tiles see the most queries, spreads over the card;
+    their f32 partial dK and dV are summed in split order. ``sq_pad``: the
+    query length of the lse/delta rows, a multiple of 128. ``ws_floats``:
+    the f32 workspace (those rows, then the partials when ``nsplit > 1``)."""
+    group = hq // hkv
+    kv_blocks = b * hkv * -(-sk // BWD_KEYS)
+    nsplit = 1
+    while group % (2 * nsplit) == 0 and kv_blocks * nsplit < 3 * sms:
+        nsplit *= 2
+    sq_pad = -(-sq // 128) * 128
+    ws = 2 * b * hq * sq_pad + (2 * nsplit * b * sk * hkv * dh if nsplit > 1 else 0)
+    return dict(nsplit=nsplit, sq_pad=sq_pad, ws_floats=ws)
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA (and 16-byte loads) can read ``t`` as it lies: head dim
+    contiguous, the other strides positive multiples of 16 bytes, the data
+    16-byte aligned."""
+    vec = 16 // t.element_size()
+    return t.stride(3) == 1 and all(s > 0 and s % vec == 0 for s in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
 
 
 def _check_cuda(name: str, q, k, v, *more):
@@ -222,9 +261,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                              lse: torch.Tensor, dout: torch.Tensor, causal: bool = True,
                              window: Optional[int] = None):
     """CUDA kernel of the backward: same contract as
-    :func:`flash_attention_bwd_torch`. Takes any strides (it works on
-    contiguous copies); ``delta = rowsum(dout * out)`` in f32 is computed
-    here, before the launch."""
+    :func:`flash_attention_bwd_torch`. bf16 reads q, k, v, out and dout
+    through their strides where TMA can (:func:`_tma_ready`) and copies the
+    others; its first pass computes ``delta = rowsum(dout * out)``. f32
+    works on contiguous copies, with ``delta`` computed here."""
     _check_shapes(q, k, v, window)
     b, sq, hq, dh = q.shape
     _, sk, hkv, _ = k.shape
@@ -234,20 +274,32 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         raise _build.KernelContractError(
             f"flash_attention_bwd_cuda: out and dout {tuple(q.shape)}, lse {(b, sq, hq)} f32; got "
             f"{tuple(out.shape)}, {tuple(dout.shape)}, {tuple(lse.shape)} {lse.dtype}")
-    q, k, v, dout, lse = (t.contiguous() for t in (q, k, v, dout, lse))
-    delta = (dout.float() * out.float()).sum(-1)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if q.numel() and k.numel():
-        lib = _bwd_lib()
-        fn = lib.flash_attention_bwd_f32 if q.dtype == torch.float32 else lib.flash_attention_bwd_bf16
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq, dk, dv)), b, sq, sk, hq,
-                 hkv, dh, int(causal), 0 if window is None else int(window), stream)
-        _build.check(err, "flash_attention_bwd")
-        flash_attention_bwd_cuda.launches += 1
-    else:
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    if not (q.numel() and k.numel()):
         for t in (dq, dk, dv):
             t.zero_()
+        return dq, dk, dv
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse = lse.contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, out, dout = (t if _tma_ready(t) else t.contiguous() for t in (q, k, v, out, dout))
+        plan = bwd_plan(b, sq, sk, hq, hkv, dh,
+                        torch.cuda.get_device_properties(q.device).multi_processor_count)
+        ws = torch.empty(plan["ws_floats"], dtype=torch.float32, device=q.device)
+        dims = (_I64 * 25)(b, sq, sk, hq, hkv, dh, int(causal), 0 if window is None else int(window),
+                           plan["nsplit"], plan["sq_pad"],
+                           *(s for t in (q, k, v, out, dout) for s in t.stride()[:3]))
+        err = lib.flash_attention_bwd_bf16(
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse, ws, dq, dk, dv)), dims, stream)
+    else:
+        q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+        delta = (dout * out).sum(-1)
+        err = lib.flash_attention_bwd_f32(*(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq, dk, dv)),
+                                          b, sq, sk, hq, hkv, dh, int(causal),
+                                          0 if window is None else int(window), stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
 

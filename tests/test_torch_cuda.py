@@ -359,6 +359,7 @@ def _bwd_case(dev, dtype, b, sq, sk, hq, hkv, dh, causal, window, seed=0):
     assert ops.launch_counts()["flash_attention_bwd"] == before + 1
     want = flash_attention_bwd_torch(q, k, v, out, lse, dout, causal, window)
     _check_grads(got, want, dtype, (b, sq, sk, hq, hkv, dh, causal, window))
+    return got
 
 
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
@@ -385,6 +386,66 @@ def test_flash_attention_bwd_kernel_rows_that_see_no_key(dev):
     """More queries than keys: the first 60 causal rows see no key, their
     lse is -inf and their dq is 0."""
     _bwd_case(dev, torch.float32, 2, 130, 70, 4, 2, 32, True, None, seed=5)
+
+
+@pytest.mark.parametrize("dh", [32, 128])
+def test_flash_attention_bwd_bf16_rows_that_see_no_key(dev, dh):
+    """The bf16 path's rows that see no key (the first 60 causal rows):
+    their dq is exactly 0, and no gradient is NaN."""
+    dq, dk, dv = _bwd_case(dev, torch.bfloat16, 2, 130, 70, 4, 2, dh, True, None, seed=5)
+    assert not bool(dq[:, :60].any())
+    assert all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+
+
+def test_flash_attention_bwd_bf16_is_deterministic(dev):
+    """Two launches at group 16, dh 128, causal, with sq = 300 (no multiple
+    of 128) give the same bits: no atomics, every sum in a fixed order (the
+    dK/dV partials of the split group included)."""
+    from repro_torch.kernels.flash_attention import bwd_plan, flash_attention_bwd_cuda
+
+    q, k, v = _attn_inputs(dev, torch.bfloat16, 2, 300, 300, 32, 2, 128, seed=7)
+    dout = (torch.rand(q.shape, device=dev) * 2 - 1).to(torch.bfloat16)
+    out, lse = ops.KERNELS["flash_attention"](q, k, v, True, None, return_lse=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert bwd_plan(2, 300, 300, 32, 2, 128, sms)["nsplit"] > 1
+    first = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    second = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_bf16_strided_views(dev):
+    """q, dout and out as strided views of packed buffers and k, v as views
+    of one (b, sk, 2, hkv, dh) tensor: read through their strides by TMA (no
+    copy) and equal to the contiguous launch; a view with a stride TMA
+    cannot describe (an odd number of elements) is copied first."""
+    from repro_torch.kernels.flash_attention import (_tma_ready, flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_torch)
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, sq, sk, hq, hkv, dh = 2, 150, 200, 8, 2, 64
+    qbuf = torch.randn(b, sq, 2, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn(b, sk, 2, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+    dbuf = (torch.rand(b, sq, hq, 2, dh, generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    q, k, v, dout = qbuf[:, :, 1], kv[:, :, 0], kv[:, :, 1], dbuf[:, :, :, 0]
+    out, lse = ops.KERNELS["flash_attention"](q, k, v, True, 70, return_lse=True)
+    obuf = torch.zeros(b, sq, hq, dh + 8, dtype=torch.bfloat16, device=dev)
+    obuf[..., :dh] = out
+    out_view = obuf[..., :dh]
+    assert all(_tma_ready(t) for t in (q, k, v, dout, out_view))
+    got = flash_attention_bwd_cuda(q, k, v, out_view, lse, dout, True, 70)
+    want = flash_attention_bwd_torch(q, k, v, out, lse, dout, True, 70)
+    _check_grads(got, want, torch.bfloat16, "strided")
+    same = flash_attention_bwd_cuda(*(t.contiguous() for t in (q, k, v, out, lse, dout)), True, 70)
+    for a, c in zip(got, same):
+        assert torch.equal(a, c)
+    odd = torch.zeros(b, sq, hq * dh + 1, dtype=torch.bfloat16, device=dev)
+    odd[..., :hq * dh] = dout.reshape(b, sq, hq * dh)
+    dout_odd = odd[..., :hq * dh].unflatten(-1, (hq, dh))
+    assert not _tma_ready(dout_odd)
+    copied = flash_attention_bwd_cuda(q, k, v, out, lse, dout_odd, True, 70)
+    for a, c in zip(copied, same):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -4,7 +4,8 @@ and the forward's log-sum-exp against the JAX package's block-scanned flash
 (``repro.kernels.flash_xla``, its custom VJP ``_bwd``) at blocks smaller
 than the sequences, so that its padding is exercised; the plain backward
 against autograd of the plain forward; and ``ops.flash_attention``'s
-gradient path for CPU tensors. The CUDA kernels are held to the same plain
+gradient path for CPU tensors; the bf16 kernel's launch plan and which
+strides it reads as they lie. The CUDA kernels are held to the same plain
 versions on the card by ``test_torch_cuda.py`` and ``chip_smoke.py``."""
 import jax
 import jax.numpy as jnp
@@ -14,7 +15,8 @@ import torch
 
 from repro.kernels import flash_xla
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention_bwd_torch,
+from repro_torch.kernels.flash_attention import (_tma_ready, bwd_plan,
+                                                 flash_attention_bwd_torch,
                                                  flash_attention_lse_torch,
                                                  flash_attention_torch)
 from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
@@ -110,3 +112,35 @@ def test_flash_attention_grad_dispatch_on_the_cpu():
     flash_attention_torch(*ref, True, None).backward(dout)
     for a, b_ in zip(leaves, ref):
         assert torch.equal(a.grad, b_.grad)
+
+
+@pytest.mark.parametrize("shape,nsplit", [
+    ((4, 2048, 2048, 32, 2, 128), 4),   # glm4-9b training: 128 key blocks -> 512
+    ((1, 200, 1200, 8, 8, 64), 1),      # groups of one query head: nothing to split
+    ((1, 200, 1200, 32, 2, 64), 16),    # 20 key blocks: the whole group of 16 split
+    ((1, 75, 75, 12, 4, 32), 1),        # a group of 3 does not halve
+    ((64, 2048, 2048, 32, 2, 128), 1),  # 2,048 key blocks fill the card unsplit
+], ids=["glm4-9b", "group1", "group16", "group3", "batch64"])
+def test_bwd_plan(shape, nsplit):
+    """The bf16 backward's plan on a 132-SM card: a group's query heads are
+    split (by halving) until the dK/dV grid has three blocks an SM; the
+    lse/delta rows are padded to a multiple of 128; the workspace holds
+    those rows and, when split, the f32 partials of dK and dV."""
+    b, sq, sk, hq, hkv, dh = shape
+    plan = bwd_plan(*shape, 132)
+    assert plan["nsplit"] == nsplit
+    assert plan["sq_pad"] % 128 == 0 and plan["sq_pad"] - 128 < sq <= plan["sq_pad"]
+    partials = 2 * nsplit * b * sk * hkv * dh if nsplit > 1 else 0
+    assert plan["ws_floats"] == 2 * b * hq * plan["sq_pad"] + partials
+
+
+def test_tma_ready_strides():
+    """TMA reads a view as it lies when its head dim is contiguous, its
+    other strides are multiples of 16 bytes and its data 16-byte aligned;
+    anything else is copied by the wrapper first."""
+    packed = torch.zeros(2, 10, 4, 2, 16, dtype=torch.bfloat16)
+    assert _tma_ready(packed[:, :, 0]) and _tma_ready(packed[:, :, 3].contiguous())
+    assert not _tma_ready(torch.zeros(2, 10, 2, 17, dtype=torch.bfloat16)[..., :16])
+    assert not _tma_ready(torch.zeros(2, 10, 16, 2, dtype=torch.bfloat16).transpose(2, 3))
+    assert not _tma_ready(torch.zeros(641, dtype=torch.bfloat16)[1:].view(2, 10, 2, 16))
+    assert _tma_ready(torch.zeros(2, 10, 2, 16)) and not _tma_ready(torch.zeros(2, 10, 2, 18)[..., :16])
