@@ -2,7 +2,7 @@
 of the ported ones, and ``reduce()`` for the small same-family variant the
 CPU tests run. A copy of the JAX package's ``configs/base.py`` without its
 XLA-only parts (shape suites, ``ShapeDtypeStruct`` input specs, scan
-unrolling)."""
+unrolling); all ten of its architectures are registered."""
 from __future__ import annotations
 
 import dataclasses
@@ -57,9 +57,59 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         return _round_up(self.vocab, 256)
 
+    @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
 
-# the ported configurations (dense family only so far; see ROADMAP.md)
-_ARCH_MODULES = ("chameleon_34b", "deepseek_67b", "glm4_9b", "internlm2_20b", "qwen2_5_32b")
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Approximate parameter count N (the JAX package's, used for
+        MODEL_FLOPS = 6*N*D)."""
+        d, ff, v, L = self.d_model, self.d_ff, self.vocab_padded, self.n_layers
+        n = v * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("dense", "moe"):
+            attn = d * self.n_heads * self.hd + 2 * d * self.n_kv_heads * self.hd + self.n_heads * self.hd * d
+            mlp = 3 * d * ff
+            if self.family == "moe":
+                mlp = mlp * self.n_experts + d * self.n_experts
+            n += L * (attn + mlp)
+        elif self.family == "ssm":
+            di, ns, hh = self.d_inner, self.ssm_state, self.ssm_heads
+            per = d * (2 * di + 2 * ns + hh) + self.ssm_conv * (di + 2 * ns) + di * d + hh * 2
+            n += L * per
+        elif self.family == "hybrid":
+            di, ns, hh = self.d_inner, self.ssm_state, self.ssm_heads
+            per = d * (2 * di + 2 * ns + hh) + self.ssm_conv * (di + 2 * ns) + di * d + hh * 2
+            n += L * per
+            # one shared attention+mlp block (input is concat[x, residual] -> 2d)
+            n += 2 * d * self.n_heads * self.hd + 2 * 2 * d * self.n_kv_heads * self.hd + self.n_heads * self.hd * d
+            n += 3 * d * ff if ff else 0
+        elif self.family == "encdec":
+            attn = d * self.n_heads * self.hd + 2 * d * self.n_kv_heads * self.hd + self.n_heads * self.hd * d
+            mlp = 3 * d * ff
+            n += self.enc_layers * (attn + mlp)  # encoder
+            n += L * (2 * attn + mlp)  # decoder has self + cross attention
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, ff, v, L = self.d_model, self.d_ff, self.vocab_padded, self.n_layers
+        n = v * d * 2
+        attn = d * self.n_heads * self.hd + 2 * d * self.n_kv_heads * self.hd + self.n_heads * self.hd * d
+        n += L * (attn + 3 * d * ff * self.top_k + d * self.n_experts)
+        return n
+
+
+_ARCH_MODULES = (
+    "deepseek_67b", "internlm2_20b", "glm4_9b", "qwen2_5_32b", "mamba2_130m",
+    "mixtral_8x7b", "mixtral_8x22b", "seamless_m4t_large_v2", "zamba2_2_7b",
+    "chameleon_34b",
+)
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -72,6 +122,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_arch(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         list_archs()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; one of {', '.join(sorted(_REGISTRY))}")
     return _REGISTRY[name]
 
 

@@ -26,7 +26,9 @@
 //   or past sk; then O += P.V by wgmma with P from registers, rounded once
 //   to bf16 (in [0, 1]; the row sums stay f32), and V's tile read as it
 //   lies through the transposed-B layout. Head dims below 64 are zero-padded
-//   to 64 by the loads. Strided views need only 16-byte-multiple strides,
+//   to 64 by the loads, and 80 to 128 (the second 64-column box reads past
+//   the tensor's last column, which TMA fills with zeros; only dh columns of
+//   the output are written). Strided views need only 16-byte-multiple strides,
 //   which TMA describes.
 // * f32: CUDA cores. 256 threads per (batch x query head, 64-query tile);
 //   thread (ty, tx) holds query rows 4ty..4ty+3, scores for keys tx + 16j
@@ -403,8 +405,9 @@ __global__ void __launch_bounds__(NT, 2)
 fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            float* __restrict__ o, float* __restrict__ lse, const Params p) {
   constexpr int LD = DH + 4;
-  constexpr int VEC = DH >= 64 ? 4 : DH / 16;  // output columns per shared-memory read
-  constexpr int NCH = DH / (16 * VEC);         // such reads per row and key
+  // output columns per shared-memory read (DH / 16 columns a thread: 5 at DH 80)
+  constexpr int VEC = (DH / 16) % 4 == 0 ? 4 : (DH / 16) % 2 == 0 ? 2 : 1;
+  constexpr int NCH = DH / (16 * VEC);  // such reads per row and key
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* KVs = Qs + BQ * LD;
@@ -558,6 +561,7 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse, int b, int sq, 
     case 16: return launch_dh<16>(q, k, v, o, lse, p, st);
     case 32: return launch_dh<32>(q, k, v, o, lse, p, st);
     case 64: return launch_dh<64>(q, k, v, o, lse, p, st);
+    case 80: return launch_dh<80>(q, k, v, o, lse, p, st);
     case 128: return launch_dh<128>(q, k, v, o, lse, p, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -55,7 +55,8 @@
 //   of their own: folded into the exponential loop they cost a fifth of the
 //   kernel time. Every sum is f32; P and dS are rounded to bf16 only as
 //   operands of their products, as FlashAttention-2 and -3 do, and each
-//   gradient once. Head dims below 64 are zero-padded to 64 by the loads.
+//   gradient once. Head dims below 64 are zero-padded to 64 by the loads,
+//   and 80 to 128 (TMA fills the second box's columns past dh with zeros).
 //   q, k, v, dout and out are read through their strides (16-byte
 //   multiples; the wrapper copies anything else).
 // * f32: the f32 CUDA cores (TF32 would break the f32 parity), all inputs
@@ -196,7 +197,7 @@ __device__ __forceinline__ void lds(const float* p, float* d) {
 // output columns of thread tx: ch * 16 * VEC + tx * VEC + e
 template <int DH>
 struct Cols {
-  static constexpr int VEC = DH >= 64 ? 4 : DH / 16;
+  static constexpr int VEC = (DH / 16) % 4 == 0 ? 4 : (DH / 16) % 2 == 0 ? 2 : 1;  // 1 at DH 80
   static constexpr int NCH = DH / (16 * VEC);
 };
 
@@ -406,6 +407,7 @@ int launch(const T* q, const T* k, const T* v, const T* dout, const float* lse,
     case 16: return launch_dh<16>(q, k, v, dout, lse, delta, dq, dk, dv, p, st);
     case 32: return launch_dh<32>(q, k, v, dout, lse, delta, dq, dk, dv, p, st);
     case 64: return launch_dh<64>(q, k, v, dout, lse, delta, dq, dk, dv, p, st);
+    case 80: return launch_dh<80>(q, k, v, dout, lse, delta, dq, dk, dv, p, st);
     case 128: return launch_dh<128>(q, k, v, dout, lse, delta, dq, dk, dv, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -448,8 +450,15 @@ constexpr int KV_PRODUCER_REGS = 24, KV_CONSUMER_REGS = 240;
 __device__ __forceinline__ float bf16_lo(unsigned x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
 
+// lanes of a prep row: DH / 8 of 16 bytes each, rounded up to a power of
+// two so that a row's lanes reduce by xor shuffles within a warp (16 at DH
+// 80, the last six idle)
+__host__ __device__ constexpr int prep_lanes(int dh) {
+  return dh <= 16 ? 2 : dh <= 32 ? 4 : dh <= 64 ? 8 : 16;
+}
+
 // Pass 1: delta = rowsum(dO * O) and lse * log2(e) of every (batch, head,
-// query) row into (b, hq, sq_pad) f32; DH / 8 lanes a row, 16 bytes each.
+// query) row into (b, hq, sq_pad) f32; prep_lanes(DH) lanes a row.
 // Rows that see no key and rows past sq get lse2 = +inf and delta = 0.
 template <int DH>
 __global__ void __launch_bounds__(256)
@@ -457,7 +466,7 @@ fa_bwd_prep(const unsigned short* __restrict__ o, const unsigned short* __restri
             const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
             const Params p, long long osb, long long oss, long long osh, long long dsb, long long dss,
             long long dsh) {
-  constexpr int L = DH / 8;
+  constexpr int L = prep_lanes(DH);
   const long long n_rows = (long long)p.b * p.hq * p.sq_pad;
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / L;
   const int lane = threadIdx.x % L;
@@ -466,7 +475,7 @@ fa_bwd_prep(const unsigned short* __restrict__ o, const unsigned short* __restri
   const int h = live ? (int)(row / p.sq_pad % p.hq) : 0;
   const int bi = live ? (int)(row / ((long long)p.sq_pad * p.hq)) : 0;
   float acc = 0.f;
-  if (live && i < p.sq) {
+  if (live && i < p.sq && 8 * lane < DH) {
     const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + bi * osb + i * oss + h * osh + 8 * lane));
     const uint4 d = __ldg(reinterpret_cast<const uint4*>(dout + bi * dsb + i * dss + h * dsh + 8 * lane));
     const unsigned av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
@@ -950,7 +959,7 @@ int launch_bf16(const unsigned short* q, const unsigned short* k, const unsigned
   const long long *qs = st, *ks = st + 3, *vs = st + 6, *os = st + 9, *ds = st + 12;
 
   // 1. delta and lse2
-  const long long threads = rows * (DH / 8);
+  const long long threads = rows * prep_lanes(DH);
   fa_bwd_prep<DH><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       o, dout, lse, lse2, delta, p, os[0], os[1], os[2], ds[0], ds[1], ds[2]);
   cudaError_t e = cudaGetLastError();
@@ -1026,6 +1035,7 @@ extern "C" int flash_attention_bwd_bf16(const unsigned short* q, const unsigned 
     case 16: return launch_bf16<16>(q, k, v, out, dout, lse, ws, dq, dk, dv, p, dims + 10, st);
     case 32: return launch_bf16<32>(q, k, v, out, dout, lse, ws, dq, dk, dv, p, dims + 10, st);
     case 64: return launch_bf16<64>(q, k, v, out, dout, lse, ws, dq, dk, dv, p, dims + 10, st);
+    case 80: return launch_bf16<80>(q, k, v, out, dout, lse, ws, dq, dk, dv, p, dims + 10, st);
     case 128: return launch_bf16<128>(q, k, v, out, dout, lse, ws, dq, dk, dv, p, dims + 10, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1038,6 +1048,7 @@ extern "C" int flash_attention_bwd_smem(int dh, int dkdv) {
     case 16: return (int)sizeof(float) * smem_floats<16>(kv);
     case 32: return (int)sizeof(float) * smem_floats<32>(kv);
     case 64: return (int)sizeof(float) * smem_floats<64>(kv);
+    case 80: return (int)sizeof(float) * smem_floats<80>(kv);
     case 128: return (int)sizeof(float) * smem_floats<128>(kv);
     default: return -1;
   }
@@ -1045,7 +1056,7 @@ extern "C" int flash_attention_bwd_smem(int dh, int dkdv) {
 
 // dynamic shared memory of one bf16 dK/dV block and one bf16 dQ block at head dim dh
 extern "C" int flash_attention_bwd_bf16_smem(int dh, int dkdv) {
-  if (dh != 16 && dh != 32 && dh != 64 && dh != 128) return -1;
+  if (dh != 16 && dh != 32 && dh != 64 && dh != 80 && dh != 128) return -1;
   if (dh > 64) return dkdv ? KvLayout<2>::BYTES : DqLayout<2>::BYTES;
   return dkdv ? KvLayout<1>::BYTES : DqLayout<1>::BYTES;
 }

@@ -173,7 +173,8 @@ inline EncodeTiled encode_tiled() {
 
 // A (64-column, n1, n2, 1) box over bf16 (dh, n1, n2, b) with the given
 // strides in elements, 128-byte swizzle; reads past an edge fill zeros
-// (head dims below 64 and the ragged last tiles of sq and sk).
+// (head dims below 64, the second box of head dim 80, and the ragged last
+// tiles of sq and sk).
 inline int bf16_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int dh, int n1, int n2,
                     int b, long long s1, long long s2, long long s3, int box1, int box2) {
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)n1, (cuuint64_t)n2, (cuuint64_t)b};

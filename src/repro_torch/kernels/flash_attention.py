@@ -68,7 +68,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -226,7 +226,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
     """CUDA kernel: same contract as :func:`flash_attention_torch`. Reads q,
     k and v through their strides (the head dim must be contiguous and every
-    stride a multiple of 16 bytes); head dims 16, 32, 64 and 128. With
+    stride a multiple of 16 bytes); head dims 16, 32, 64, 80 and 128 (bf16
+    pads 80 to 128 in shared memory: TMA fills the columns past 80 with
+    zeros, so 37.5% of its products are on padding). With
     ``return_lse`` it returns (out, lse) as :func:`flash_attention_lse_torch`
     does; without, it launches exactly the serving kernel (no lse written)."""
     _check_shapes(q, k, v, window)

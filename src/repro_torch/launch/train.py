@@ -6,8 +6,11 @@ GPU unless given ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke \\
         --device cpu --steps 20 --ckpt-dir /tmp/ckpt
 
-Each step: the model's loss and its gradients (the flash attention forward
-and backward kernels on the card), gradient compression, then
+Trains the decoder-only families (dense, moe, ssm, hybrid; the default
+``--arch`` is mamba2-130m, as the reference's); encdec exits, as the
+reference's trainer does. Each step: the model's loss and its gradients
+(the flash attention forward and backward kernels on the card, where the
+model has attention), gradient compression, then
 ``adamw.apply_updates`` at ``lr_schedule(step)``. One device only: a mesh
 of more than one raises (the multi-card layout waits for ROADMAP Queue 1
 item 10).
@@ -23,7 +26,7 @@ from typing import Optional
 import torch
 
 from ..checkpoint.manager import CheckpointManager
-from ..configs.base import get_arch, list_archs, reduce as reduce_cfg
+from ..configs.base import get_arch, reduce as reduce_cfg
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..device import resolve_device
 from ..distributed.sharding import ShardingRules, use_rules
@@ -111,10 +114,6 @@ def run(tcfg: TrainConfig, mesh=None, device=None) -> dict:
         raise NotImplementedError(
             f"a mesh of {mesh.size} devices: the port trains on one device (the multi-card "
             "layout is ROADMAP Queue 1 item 10)")
-    if tcfg.arch not in list_archs():  # the default, mamba2-130m, among them
-        raise NotImplementedError(
-            f"{tcfg.arch}: not ported to PyTorch yet; the port trains {', '.join(list_archs())} "
-            "(see ROADMAP.md)")
     arch = get_arch(tcfg.arch)
     cfg = reduce_cfg(arch) if tcfg.smoke else arch
     if cfg.family == "encdec":
@@ -180,7 +179,7 @@ def run(tcfg: TrainConfig, mesh=None, device=None) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mamba2-130m")
-    ap.add_argument("--smoke", action="store_true", help="the reduced config (2 layers, f32)")
+    ap.add_argument("--smoke", action="store_true", help="the reduced config (2 layers, 4 for hybrid; f32)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)

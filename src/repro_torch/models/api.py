@@ -7,21 +7,36 @@ the JAX package's ``repro.models.api.Model``:
     prefill(params, batch) -> (last-token logits, cache)
     decode(params, cache, tokens, pos) -> (logits, cache)
     init_cache(batch, seq_len) -> cache
-Only the dense family is ported.
+for the five families: dense, moe, ssm (Mamba2), hybrid (Zamba2) and encdec.
+A batch is ``{"tokens"}``, or ``{"src_embeds", "tgt_tokens"}`` for encdec.
+``prefill`` and ``decode`` run under ``torch.inference_mode``: serving
+records no gradient, so no block goes through ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Any, Mapping, Optional, Union
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from . import transformer
+from . import encdec, mamba2, moe, transformer, zamba2
 
-_FAMILIES = {"dense": transformer}
-_NOT_PORTED = ("moe", "ssm", "hybrid", "encdec")
+_FAMILIES = {
+    "dense": transformer,
+    "moe": moe,
+    "ssm": mamba2,
+    "hybrid": zamba2,
+    "encdec": encdec,
+}
+
+
+def family_module(cfg: ArchConfig):
+    """The module of ``cfg.family``; an unknown family raises ``ValueError``."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; one of {sorted(_FAMILIES)}")
+    return _FAMILIES[cfg.family]
 
 
 @dataclasses.dataclass
@@ -39,9 +54,11 @@ class Model:
     def loss(self, params, batch):
         return self.module.loss_fn(params, batch, self.cfg, remat=self.remat)
 
+    @torch.inference_mode()
     def prefill(self, params, batch):
         return self.module.prefill(params, batch, self.cfg)
 
+    @torch.inference_mode()
     def decode(self, params, cache, tokens, pos: int):
         return self.module.decode_step(params, cache, tokens, pos, self.cfg)
 
@@ -53,9 +70,20 @@ def build_model(cfg: ArchConfig, device: Optional[Union[str, torch.device]] = No
                 remat: str = "dots") -> Model:
     """The model of ``cfg`` on ``device`` (the GPU when None), its loss under
     the ``remat`` policy (``transformer.REMAT_POLICIES``)."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch yet (see ROADMAP.md)")
+    module = family_module(cfg)
     if remat not in transformer.REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; one of {sorted(transformer.REMAT_POLICIES)}")
-    return Model(cfg=cfg, module=_FAMILIES[cfg.family], device=resolve_device(device), remat=remat)
+    return Model(cfg=cfg, module=module, device=resolve_device(device), remat=remat)
+
+
+def named_from_numpy(cfg: ArchConfig, tree: Mapping) -> dict:
+    """A JAX parameter pytree of ``cfg``'s family (or one shaped like it:
+    gradients, AdamW moments) as numpy arrays keyed by the port's parameter
+    names."""
+    return family_module(cfg).named_from_numpy(cfg, tree)
+
+
+def params_from_numpy(cfg: ArchConfig, np_params: Mapping) -> torch.nn.Module:
+    """The port's weights of ``cfg``'s family, on the CPU, holding the JAX
+    package's parameters (its ``init_params`` pytree as numpy arrays)."""
+    return family_module(cfg).params_from_numpy(cfg, np_params)

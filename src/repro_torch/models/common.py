@@ -1,6 +1,7 @@
 """Shared model components: RMSNorm, RoPE, GQA attention (full sequence,
-prefill and one decode step against a KV cache), SwiGLU MLP, embedding, LM
-head and the token-chunked LM loss.
+cross-attention, prefill and one decode step against a KV cache), SwiGLU
+MLP, embedding, LM head, the token-chunked LM loss, and the loading of the
+JAX package's parameters by name.
 
 Plain functions on tensors, in the JAX package's order of casts (the tests
 hold them against ``repro/models/common.py``), and the ``nn.Module``s that
@@ -10,8 +11,9 @@ hold the weights. Weights keep the JAX layout, ``(in, out)``, so a product is
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -79,17 +81,18 @@ class RMSNorm(nn.Module):
 # attention
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
-    """GQA projections ``wq`` (d, h*hd), ``wk``/``wv`` (d, kv*hd), ``wo``
-    (h*hd, d), and the QKV biases where the config has them."""
+    """GQA projections ``wq`` (d_in, h*hd), ``wk``/``wv`` (d_in, kv*hd),
+    ``wo`` (h*hd, d), and the QKV biases where the config has them. ``d_in``
+    is d_model unless given (zamba2's shared block reads 2 d_model)."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, device: torch.device, d_in: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
-        d, hd, h, kv, dt = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, act_dtype(cfg)
+        d, hd, h, kv, dt = d_in or cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, act_dtype(cfg)
         self.wq = empty_weight(d, h * hd, dtype=dt, device=device)
         self.wk = empty_weight(d, kv * hd, dtype=dt, device=device)
         self.wv = empty_weight(d, kv * hd, dtype=dt, device=device)
-        self.wo = empty_weight(h * hd, d, dtype=dt, device=device)
+        self.wo = empty_weight(h * hd, cfg.d_model, dtype=dt, device=device)
         if cfg.qkv_bias:
             self.bq = empty_weight(h * hd, dtype=dt, device=device)
             self.bk = empty_weight(kv * hd, dtype=dt, device=device)
@@ -106,14 +109,24 @@ class Attention(nn.Module):
         return attention(self, x, self.cfg)
 
 
-def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """(b, s, d) -> q (b, s, h, hd), k and v (b, s, kv, hd), RoPE on q and k."""
+def _project_q(p: Attention, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    q = x @ p.wq
+    return q + p.bq if cfg.qkv_bias else q
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                 use_rope: bool = True):
+    """(b, s, d) -> q (b, s, h, hd), k and v (b, s, kv, hd), RoPE on q and k
+    unless ``use_rope`` is False."""
     b, s, _ = x.shape
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = rope(q.reshape(b, s, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, cfg.n_kv_heads, cfg.hd), positions, cfg.rope_theta)
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
 
 
@@ -121,11 +134,23 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Causal full-sequence self-attention (the forward pass)."""
+def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
+              use_rope: bool = True,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill) at positions 0 .. s - 1.
+    ``kv_override`` = (k, v) of another sequence (b, sk, kv, hd) is
+    cross-attention: only q is projected from x (the JAX package projects
+    k and v too and drops them)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, _positions(b, s, x.device))
-    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window)
+    positions = _positions(b, s, x.device)
+    if kv_override is not None:
+        q = _project_q(p, x, cfg).reshape(b, s, cfg.n_heads, cfg.hd)
+        if use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+        k, v = kv_override
+    else:
+        q, k, v = _project_qkv(p, x, cfg, positions, use_rope)
+    out = ops.flash_attention(q, k, v, causal=causal, window=cfg.window)
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p.wo
 
 
@@ -147,25 +172,33 @@ def attention_prefill(p: Attention, x: torch.Tensor, cfg: ArchConfig,
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                     cfg: ArchConfig, pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                     cfg: ArchConfig, pos: int, *, update_cache: bool = True,
+                     use_rope: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: x (b, d) at position ``pos`` against the cache (a
     ring buffer for a sliding-window config). Writes the new K/V into slot
     ``pos % s_cache`` (window) or ``min(pos, s_cache - 1)``, in place, and
-    returns the output and the same cache. Plain PyTorch: the einsums over
-    the cache are not a kernel of the JAX package either."""
+    returns the output and the same cache. ``update_cache=False`` reads the
+    cache as it is (cross-attention over an encoder's K/V): k and v are not
+    projected. Plain PyTorch: the einsums over the cache are not a kernel of
+    the JAX package either."""
     b, _ = x.shape
     hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     ck, cv = cache["k"], cache["v"]
     s_cache = ck.shape[1]
-    q, k_new, v_new = x @ p.wq, x @ p.wk, x @ p.wv
-    if cfg.qkv_bias:
-        q, k_new, v_new = q + p.bq, k_new + p.bk, v_new + p.bv
     posb = torch.full((b, 1), pos, device=x.device)
-    q = rope(q.reshape(b, 1, h, hd), posb, cfg.rope_theta)
-    k_new = rope(k_new.reshape(b, 1, kv, hd), posb, cfg.rope_theta)
-    slot = pos % s_cache if cfg.window is not None else min(pos, s_cache - 1)
-    ck[:, slot] = k_new[:, 0]
-    cv[:, slot] = v_new.reshape(b, kv, hd)
+    q = _project_q(p, x, cfg).reshape(b, 1, h, hd)
+    if use_rope:
+        q = rope(q, posb, cfg.rope_theta)
+    if update_cache:
+        k_new, v_new = x @ p.wk, x @ p.wv
+        if cfg.qkv_bias:
+            k_new, v_new = k_new + p.bk, v_new + p.bv
+        k_new = k_new.reshape(b, 1, kv, hd)
+        if use_rope:
+            k_new = rope(k_new, posb, cfg.rope_theta)
+        slot = pos % s_cache if cfg.window is not None else min(pos, s_cache - 1)
+        ck[:, slot] = k_new[:, 0]
+        cv[:, slot] = v_new.reshape(b, kv, hd)
     qf = q.reshape(b, kv, h // kv, hd).float()
     logits = torch.einsum("bkgd,bskd->bkgs", qf, ck.float()) / hd**0.5
     if pos < s_cache:  # a ring buffer is all valid once pos >= s_cache
@@ -203,6 +236,23 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
+def init_embed_(params, generator: torch.Generator) -> None:
+    """The JAX package's ``init_embed``: embedding normal 0.02, head (unless
+    tied) normal ``d ** -0.5``."""
+    dense_init_(params.embed, generator, scale=0.02)
+    if params.head is not None:
+        dense_init_(params.head, generator)
+
+
+def named_embed(cfg: ArchConfig, tree: Mapping) -> Dict[str, np.ndarray]:
+    """The embedding, head (unless tied) and final norm of a JAX parameter
+    pytree under the port's names."""
+    out = {"embed": tree["embed"], "final_norm.scale": tree["final_norm"]["scale"]}
+    if not cfg.tie_embeddings:
+        out["head"] = tree["head"]
+    return out
+
+
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens]
 
@@ -250,3 +300,19 @@ def lm_loss(params, x: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig,
                 else chunk_loss(xi, li))
         total = total + part
     return total / t
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's parameters
+# ---------------------------------------------------------------------------
+def load_named_(params: nn.Module, named: Mapping[str, np.ndarray]) -> nn.Module:
+    """Copies ``named`` (the port's parameter names -> arrays, as each
+    family's ``named_from_numpy`` gives them) into ``params``, every one of
+    its parameters, casting to its dtype."""
+    with torch.no_grad():
+        for name, dst in params.named_parameters():
+            src = np.asarray(named[name], dtype=np.float32)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: shape {src.shape} does not fit {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(src))
+    return params

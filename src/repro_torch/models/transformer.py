@@ -92,9 +92,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> Transformer:
     distributions (not its values): normal ``fan_in ** -0.5`` projections,
     normal 0.02 embedding, zero biases, unit norm scales."""
     p = Transformer(cfg, generator.device)
-    cm.dense_init_(p.embed, generator, scale=0.02)
-    if p.head is not None:
-        cm.dense_init_(p.head, generator)
+    cm.init_embed_(p, generator)
     for blk in p.blocks:
         blk.attn.init_(generator)
         blk.mlp.init_(generator)
@@ -108,9 +106,7 @@ def named_from_numpy(cfg: ArchConfig, tree: Mapping) -> Dict[str, np.ndarray]:
     moments) as numpy arrays keyed by the port's parameter names
     (``Transformer.named_parameters()``), the stacked layer leaves split
     per block."""
-    out = {"embed": tree["embed"]}
-    if not cfg.tie_embeddings:
-        out["head"] = tree["head"]
+    out = cm.named_embed(cfg, tree)
     layers = tree["layers"]
     attn = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv") if cfg.qkv_bias else ())
     for i in range(cfg.n_layers):
@@ -120,7 +116,6 @@ def named_from_numpy(cfg: ArchConfig, tree: Mapping) -> Dict[str, np.ndarray]:
         out[f"blocks.{i}.mlp_norm.scale"] = layers["mlp_norm"]["scale"][i]
         for name in ("w_gate", "w_up", "w_down"):
             out[f"blocks.{i}.mlp.{name}"] = layers["mlp"][name][i]
-    out["final_norm.scale"] = tree["final_norm"]["scale"]
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -129,28 +124,27 @@ def params_from_numpy(cfg: ArchConfig, np_params: Mapping) -> Transformer:
     the nested dict of ``repro.models.transformer.init_params`` as numpy
     arrays, with stacked ``(n_layers, ...)`` layer leaves and ``(in, out)``
     weights."""
-    p = Transformer(cfg, torch.device("cpu"))
-    named = named_from_numpy(cfg, np_params)
-    for name, dst in p.named_parameters():
-        src = np.asarray(named[name], dtype=np.float32)
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {src.shape} does not fit {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(src))
-    return p
+    return cm.load_named_(Transformer(cfg, torch.device("cpu")), named_from_numpy(cfg, np_params))
+
+
+def remat_call(fn, *args, remat: str):
+    """``fn(*args)``; where a gradient is being recorded, under
+    ``torch.utils.checkpoint`` with the ``remat`` policy (see
+    :data:`REMAT_POLICIES`), as the JAX package wraps a block in
+    ``jax.checkpoint``."""
+    context_fn = REMAT_POLICIES[remat]
+    if context_fn is None or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
             remat: str = "dots") -> torch.Tensor:
-    """tokens (b, s) -> final hidden states (b, s, d). Where a gradient is
-    being recorded, each block runs under ``torch.utils.checkpoint`` with
-    the ``remat`` policy (see :data:`REMAT_POLICIES`)."""
-    context_fn = REMAT_POLICIES[remat]
+    """tokens (b, s) -> final hidden states (b, s, d), each block under
+    :func:`remat_call`."""
     x = cm.embed(params, tokens)
     for blk in params.blocks:
-        if context_fn is None or not torch.is_grad_enabled():
-            x = blk(x)
-        else:
-            x = checkpoint(blk, x, use_reentrant=False, context_fn=context_fn)
+        x = remat_call(blk, x, remat=remat)
     return cm.rms_norm(x, params.final_norm.scale)
 
 

@@ -250,7 +250,7 @@ def _attn_inputs(dev, dtype, b, sq, sk, hq, hkv, dh, seed=0):
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-8}
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128])
 @pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_kernel(dev, dtype, mask, dh):
@@ -298,7 +298,7 @@ def test_flash_attention_bf16_long_keys_wrap_the_ring(dev, mask):
     _check_flash(q, k, v, causal=mask != "bidirectional", window=300 if mask == "window" else None)
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 2)], ids=["group1", "group4", "group16"])
 def test_flash_attention_bf16_groups_and_ragged_rows(dev, hq, hkv, dh):
     """GQA groups of 1, 4 and 16 query heads per kv head (a block holds 4, 2
@@ -362,7 +362,7 @@ def _bwd_case(dev, dtype, b, sq, sk, hq, hkv, dh, causal, window, seed=0):
     return got
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_bwd_kernel(dev, dtype, mask, dh):
@@ -412,6 +412,24 @@ def test_flash_attention_bwd_bf16_is_deterministic(dev):
     second = flash_attention_bwd_cuda(q, k, v, out, lse, dout)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("window", [None, 300], ids=["causal", "window"])
+def test_flash_attention_bwd_bf16_dh80_zamba2_heads(dev, window):
+    """zamba2's shared attention: 32 query heads, each its own kv head, head
+    dim 80 (two 64-column boxes, the second zero-filled past column 80);
+    sq = sk = 333 leaves ragged query and key tiles. Within the limits
+    against the plain backward, no NaN, and two launches bit-equal."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    first = _bwd_case(dev, torch.bfloat16, 2, 333, 333, 32, 32, 80, True, window, seed=80)
+    q, k, v = _attn_inputs(dev, torch.bfloat16, 2, 333, 333, 32, 32, 80, seed=80)
+    g = torch.Generator(device=dev).manual_seed(81)
+    dout = (torch.rand(q.shape, generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    out, lse = ops.KERNELS["flash_attention"](q, k, v, True, window, return_lse=True)
+    second = flash_attention_bwd_cuda(q, k, v, out, lse, dout, True, window)
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
 
 
 def test_flash_attention_bwd_bf16_strided_views(dev):

@@ -68,7 +68,11 @@ def test_config_matches_reference(name):
 
 
 def test_list_archs_names_only_the_port():
-    assert list_archs() == DENSE
+    """The port registers the JAX package's ten architectures, no more."""
+    from repro.configs import list_archs as jlist_archs
+
+    assert list_archs() == jlist_archs()
+    assert set(DENSE) < set(list_archs())
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +235,14 @@ def test_init_params_distributions():
 
 
 def test_build_model_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(dataclasses.replace(get_arch("glm4-9b"), family="moe"), "cpu")
+    """All five families build; an unknown family raises ``ValueError``."""
+    for name in list_archs():
+        cfg = reduce(get_arch(name))
+        assert build_model(cfg, "cpu").module.__name__.split(".")[-1] == {
+            "dense": "transformer", "moe": "moe", "ssm": "mamba2", "hybrid": "zamba2",
+            "encdec": "encdec"}[cfg.family]
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(get_arch("glm4-9b"), family="rwkv"), "cpu")
     cfg, _, np_params, _, _ = _setup()
     bad = dict(np_params, embed=np_params["embed"][:, :64])
     with pytest.raises(ValueError, match="does not fit"):
