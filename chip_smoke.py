@@ -138,8 +138,23 @@ Phases, each fatal on failure:
      (token, slot) pairs printed; ``launch.train.run`` on mamba2-130m (8 x
      2,048, 10 steps) and zamba2-2.7b (2 x 2,048, 10 steps, 9 backward
      launches a step), finite losses from near ln(vocab), falling;
- 14. a ``{"kernels": [...]}`` line (the flash rows' launches include phase
-     13's), then the card line and the device line.
+ 14. the LM planning stack: the dry-run (``launch/dryrun.py``, a traced step
+     on the ``meta`` device) of glm4-9b's training step at full width, 8
+     layers, 4 x 2,048 tokens, bf16, remat "dots", beside 1 warm-up and 3
+     timed steps of the same step on the card (fatal if the card's step is
+     faster than the dry-run's bound with attention counted as the card's
+     flash kernels do it, the blocked plain flash's bound printed beside it;
+     fatal if the counted product FLOPs fall under
+     6ND less the embedding lookup's share, or if the argument bytes differ
+     from the card's tensors'; the temp gap is printed);
+     ``launch.tune_serving.run``'s 10-round VDTuner session on the same
+     model and shape, its Pareto front, and its fastest configuration's step
+     on the card (the same bound check); ``pipeline_apply`` over the 8
+     blocks at (2, 4) and (4, 2) stages x microbatches, 8 x 2,048 x 4,096
+     bf16 inputs, output and gradients against the sequential stack;
+     ``serve_tuner.HBM_PER_DEV`` against the card's ``total_memory``;
+ 15. a ``{"kernels": [...]}`` line (the flash rows' launches include phases
+     13's and 14's), then the card line and the device line.
 
 The script sets ``REPRO_BENCH_FULL=1`` in its own process before it imports
 the port (only the benchmark harness reads it), and
@@ -154,6 +169,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2731,6 +2747,325 @@ def families_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM planning stack
+# ---------------------------------------------------------------------------
+# glm4-9b at full width, 8 of its 40 layers (phase 12's model), trained at
+# 4 x 2,048 tokens in bf16; the dry-run and the card's step both at remat "dots"
+PLAN_DEPTH = 8
+PLAN_SHAPE = dict(seq_len=2048, batch=4)
+PLAN_REMAT = "dots"
+PLAN_STEPS = 3  # timed, after one warm-up
+# the pipeline over glm4-9b-d8's 8 blocks: batch 8 x 2,048 x 4,096 in bf16,
+# each block under remat "dots" (the activations of (4, 2)'s 20 stage runs
+# would not fit otherwise); (n_stages, n_micro)
+PIPE_BATCH = 8
+PIPE_SCHEDULES = ((2, 4), (4, 2))
+# phase 12's bf16 limits: the output and every gradient of the pipeline
+# against the sequential stack by relative L2 (STEP_GRAD_RTOL); the two
+# run the same blocks on microbatches of another size, so cuBLAS may pick
+# other algorithms and round differently
+PIPE_RTOL = STEP_GRAD_RTOL
+
+
+def plan_step(cfg, remat, device, steps=PLAN_STEPS):
+    """The dry-run's training step on the card: glm4-9b-d8's loss, its
+    gradients and AdamW (``adamw.apply_updates``, lr scale 1) on random
+    weights from seed 0 and an int32 batch, one warm-up and ``steps`` timed
+    steps. Returns the median seconds, the argument bytes (weights, AdamW
+    step, m and v, batch; each tensor's ``nbytes``) and the peak memory of
+    the timed steps beyond them, with the flash launches of all of them."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw, init_state
+
+    model = build_model(cfg, device, remat=remat)
+    params = model.init(torch.Generator(device=device).manual_seed(0)).requires_grad_(True)
+    state = init_state(params)
+    g = torch.Generator(device=device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PLAN_SHAPE["batch"], PLAN_SHAPE["seq_len"] + 1),
+                                     generator=g, device=device, dtype=torch.int32)}
+    tensors = ([p for p in params.parameters()] + [state.step] + list(state.m.values())
+               + list(state.v.values()) + [batch["tokens"]])
+    arg_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    names, leaves = zip(*params.named_parameters())
+    opt = AdamWConfig()
+
+    def step():
+        loss = model.loss(params, batch)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        adamw.apply_updates(params, grads, state, opt)
+        return loss.detach()
+
+    ops.reset_launch_counts()
+    loss0 = float(step())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times, losses = [], [loss0]
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step()))  # waits for the step's device work
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    del params, state, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"plan step ({remat}): non-finite loss in {losses}")
+    return dict(median_s=sorted(times)[len(times) // 2], step_s=times, losses=losses,
+                arg_bytes=arg_bytes, base_bytes=base, peak_bytes=peak,
+                temp_bytes=peak - arg_bytes, launches=launches)
+
+
+def kernel_bound(roof, meta, label):
+    """The dry-run's roofline with attention counted as the card's flash
+    kernels do it (``dryrun.kernel_roofline``); prints attention's two
+    shares and both bounds."""
+    from repro_torch.launch import dryrun
+
+    card_roof = dryrun.kernel_roofline(roof, meta)
+    blocked, kernels = meta["flash_blocked"], meta["flash_kernels"]
+    print(f"  {label}: attention's share as the blocked plain flash {blocked['flops']:.4e} FLOPs, "
+          f"{blocked['bytes']:.4e} bytes; as the card's flash kernels {kernels['flops']:.4e} FLOPs, "
+          f"{kernels['bytes']:.4e} bytes; bound with the blocked flash {roof.bound_s:.4f} s "
+          f"({roof.bottleneck}), with the card's kernels {card_roof.bound_s:.4f} s "
+          f"({card_roof.bottleneck}: compute {card_roof.compute_s:.4f} s, memory "
+          f"{card_roof.memory_s:.4f} s)", flush=True)
+    return card_roof
+
+
+def hold_step_to_bound(label, card, bound_s, blocked_bound_s):
+    """Fails if the card's step is faster than the bound of the work it runs
+    (the dry-run with attention counted as the card's flash kernels): the
+    count would then claim work that the card did not do. The bound with
+    the blocked plain flash, which the card does not run, is printed beside
+    it and not held."""
+    print(f"  {label}: card step {card['median_s']:.4f} s (steps {[round(t, 4) for t in card['step_s']]}) "
+          f"against the bound with the card's kernels {bound_s:.4f} s: {card['median_s'] / bound_s:.3f} x "
+          f"(against the blocked flash's {blocked_bound_s:.4f} s: {card['median_s'] / blocked_bound_s:.3f} x)",
+          flush=True)
+    if not card["median_s"] >= bound_s:
+        fail(f"{label}: the card's step {card['median_s']} s is faster than the bound of its work "
+             f"{bound_s} s")
+
+
+def dryrun_vs_card(device):
+    """Phase 14 (a): the dry-run of glm4-9b-d8's training step at 4 x 2,048,
+    bf16, remat "dots", against the same step on the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.tune_serving import register_shape
+    from repro_torch.tuning import serve_tuner
+
+    props = torch.cuda.get_device_properties(0)
+    print(f"  HBM_PER_DEV {serve_tuner.HBM_PER_DEV:,} B against the card's total_memory "
+          f"{props.total_memory:,} B", flush=True)
+    if serve_tuner.HBM_PER_DEV != props.total_memory:
+        fail(f"serve_tuner.HBM_PER_DEV {serve_tuner.HBM_PER_DEV} != the card's total_memory "
+             f"{props.total_memory}")
+    cfg = get_arch(f"glm4-9b-d{PLAN_DEPTH}")
+    shape = register_shape(PLAN_SHAPE["seq_len"], PLAN_SHAPE["batch"])
+    t0 = time.perf_counter()
+    roof, meta = dryrun.lower_cell(cfg.name, shape, remat=PLAN_REMAT)
+    trace_s = time.perf_counter() - t0
+    ma = meta["memory_analysis"]
+    tokens = PLAN_SHAPE["seq_len"] * PLAN_SHAPE["batch"]
+    # 6ND counts the input embedding's v x d parameters as products, but
+    # the embedding is a row gather (no product runs on them): the counted
+    # products must reach 6ND without that share
+    lookup = 0.0 if cfg.tie_embeddings else 6.0 * cfg.vocab_padded * cfg.d_model * tokens
+    print(f"  dry-run of {cfg.name} train {PLAN_SHAPE['batch']} x {PLAN_SHAPE['seq_len']} (remat "
+          f"{PLAN_REMAT}, flash blocks {meta['flash_blocks']}): {roof.hlo_flops:.4e} product FLOPs, "
+          f"{roof.hlo_bytes:.4e} bytes, {meta['traced_ops']} ops traced in {trace_s:.1f} s; compute "
+          f"{roof.compute_s:.4f} s, memory {roof.memory_s:.4f} s, collective {roof.collective_s:.4f} s, "
+          f"bound {roof.bound_s:.4f} s ({roof.bottleneck}); model FLOPs (6ND) {roof.model_flops:.4e}, "
+          f"less the embedding lookup's share {roof.model_flops - lookup:.4e}; arguments "
+          f"{ma['argument_size_in_bytes']:,} B, temp {ma['temp_size_in_bytes'] / 2**30:.3f} GiB",
+          flush=True)
+    if not roof.hlo_flops >= roof.model_flops - lookup:
+        fail(f"dry-run: counted product FLOPs {roof.hlo_flops} under model_flops_for less the "
+             f"embedding lookup ({roof.model_flops} - {lookup})")
+    card = plan_step(cfg, PLAN_REMAT, device)
+    frac = roof.model_flops / hlo_analysis.PEAK_FLOPS / card["median_s"]
+    print(f"  card: peak {card['peak_bytes'] / 2**30:.3f} GiB allocated, arguments "
+          f"{card['arg_bytes']:,} B ({card['base_bytes']:,} B allocated before the timed steps); "
+          f"temp on the card (peak less arguments) {card['temp_bytes'] / 2**30:.3f} GiB against the "
+          f"dry-run's {ma['temp_size_in_bytes'] / 2**30:.3f} GiB (a finding, not held: the card's "
+          f"flash keeps no score block); roofline fraction (6ND at the bf16 peak over the card's "
+          f"step) {frac:.4f}; launches {card['launches']}", flush=True)
+    if card["arg_bytes"] != ma["argument_size_in_bytes"]:
+        fail(f"dry-run argument bytes {ma['argument_size_in_bytes']} != the card's {card['arg_bytes']}")
+    card_roof = kernel_bound(roof, meta, "(a)")
+    hold_step_to_bound("(a) glm4-9b-d8 remat dots", card, card_roof.bound_s, roof.bound_s)
+    return dict(roofline=roof.to_dict(), kernel_roofline=card_roof.to_dict(), meta=meta,
+                trace_s=trace_s, card=card,
+                lookup_flops=lookup, roofline_fraction_card=frac,
+                temp_gap_bytes=ma["temp_size_in_bytes"] - card["temp_bytes"])
+
+
+def tuner_phase(device):
+    """Phase 14 (b): ``tune_serving``'s session (VDTuner, seed 0, 10 rounds)
+    on glm4-9b-d8 at 4 x 2,048, then the fastest configuration's training
+    step on the card under its remat policy."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_xla
+    from repro_torch.launch import dryrun, tune_serving
+    from repro_torch.tuning.serve_tuner import _REMAT
+
+    t0 = time.perf_counter()
+    out = tune_serving.run("glm4-9b", depth=PLAN_DEPTH, seq_len=PLAN_SHAPE["seq_len"],
+                           batch=PLAN_SHAPE["batch"], rounds=10, seed=0, device=str(device))
+    tune_s = time.perf_counter() - t0
+    hist = out["tuner"].history
+    print(f"  tuner: {len(hist)} evaluations ({sum(o.failed for o in hist)} failed, "
+          f"{len(out['env'].cache)} traced) in {tune_s:.1f} s; pareto (steps/s at the bound, "
+          f"HBM headroom): " + ", ".join(f"({s:.4f}, {h:.4f})" for s, h in out["front"]), flush=True)
+    best = out["best"]
+    c = best.config
+    print(f"  fastest: {c['index_type']} bq={c['flash_bq']} bk={c['flash_bk']} "
+          f"seq_parallel={c['seq_parallel']}: bound {1 / best.raw['speed']:.4f} s, predicted temp "
+          f"{best.raw['mem_gib']:.3f} GiB", flush=True)
+    # the fastest configuration's trace again, for attention's shares: its
+    # blocks move only the blocked share, which the card's bound takes out
+    prev = flash_xla.get_default_blocks()
+    flash_xla.set_default_blocks(c["flash_bq"], c["flash_bk"])
+    try:
+        roof, meta = dryrun.lower_cell(out["cfg"].name, out["env"].shape.name,
+                                       remat=_REMAT[c["index_type"]])
+    finally:
+        flash_xla.set_default_blocks(*prev)
+    if not math.isclose(roof.bound_s, 1 / best.raw["speed"], rel_tol=1e-9):
+        fail(f"(b) the fastest configuration's trace gives the bound {roof.bound_s} s, the tuner's "
+             f"{1 / best.raw['speed']} s")
+    card_roof = kernel_bound(roof, meta, "(b)")
+    card = plan_step(get_arch(f"glm4-9b-d{PLAN_DEPTH}"), _REMAT[c["index_type"]], device)
+    print(f"  fastest on the card: temp (peak less arguments) {card['temp_bytes'] / 2**30:.3f} GiB "
+          f"against the predicted {best.raw['mem_gib']:.3f} GiB; launches {card['launches']}",
+          flush=True)
+    hold_step_to_bound(f"(b) the fastest configuration ({c['index_type']})", card, card_roof.bound_s,
+                       roof.bound_s)
+    return dict(tune_s=tune_s, evaluations=len(hist), front=[list(map(float, p)) for p in out["front"]],
+                best=dict(config={k: (v if isinstance(v, (int, float, str, bool)) else str(v))
+                                  for k, v in c.items()}, raw=dict(best.raw)),
+                kernel_roofline=card_roof.to_dict(), card=card)
+
+
+def pipeline_phase(device):
+    """Phase 14 (c): glm4-9b-d8's 8 blocks stacked and run through
+    ``pipeline_apply`` at (2, 4) and (4, 2) on 8 x 2,048 x 4,096 bf16
+    inputs, the output and the gradients of a scalar loss (every stacked
+    weight and the input) against the sequential stack."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.pipeline import (module_block_fn, pipeline_apply, sequential_apply,
+                                                  stack_blocks)
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import remat_call
+
+    cfg = get_arch(f"glm4-9b-d{PLAN_DEPTH}")
+    params = build_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
+    stacked = {n: t.detach().requires_grad_(True) for n, t in stack_blocks(params.blocks).items()}
+    template = params.blocks[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn = module_block_fn(template)
+
+    def block_fn(p, h):
+        return remat_call(fn, p, h, remat="dots")
+
+    g = torch.Generator(device=device).manual_seed(2)
+    x = (torch.randn(PIPE_BATCH, PLAN_SHAPE["seq_len"], cfg.d_model, generator=g, device=device)
+         .to(torch.bfloat16).requires_grad_(True))
+    w = torch.randn(x.shape, generator=g, device=device)
+
+    def run(apply):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = apply()
+        loss = (out.float() * w).mean()
+        leaves = [x] + list(stacked.values())
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return (out.detach(), dict(zip(["x"] + list(stacked), grads)), time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2**30, ops.launch_counts())
+
+    want, want_g, seq_s, seq_gib, seq_l = run(lambda: sequential_apply(stacked, x, block_fn))
+    print(f"  sequential stack: {seq_s:.3f} s forward and backward, peak {seq_gib:.2f} GiB, "
+          f"launches {seq_l}", flush=True)
+    res, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0}
+    for n_stages, n_micro in PIPE_SCHEDULES:
+        got, got_g, s, gib, l = run(lambda: pipeline_apply(stacked, x, block_fn, n_stages, n_micro))
+        out_rel = float((got.float() - want.float()).norm() / want.float().norm())
+        grad_rel = {n: float((got_g[n].float() - want_g[n].float()).norm() / want_g[n].float().norm())
+                    for n in want_g}
+        worst = max(grad_rel.items(), key=lambda kv: kv[1])
+        slots = n_stages + n_micro - 1
+        print(f"  pipeline ({n_stages} stages, {n_micro} microbatches, {slots} slots): {s:.3f} s, "
+              f"peak {gib:.2f} GiB, output relative L2 {out_rel:.3e}, gradients' largest relative L2 "
+              f"{worst[1]:.3e} ({worst[0]}), launches {l}", flush=True)
+        if not (out_rel <= PIPE_RTOL and worst[1] <= PIPE_RTOL):
+            fail(f"pipeline ({n_stages}, {n_micro}): output {out_rel} or gradient {worst} over {PIPE_RTOL} "
+                 "(relative L2) against the sequential stack")
+        # every slot runs every stage's layers (slots x layers forwards); under
+        # remat "dots" the blocks that carry a microbatch to the output (the
+        # bubbles' zeros reach no loss) run their forward again and their backward
+        expect = {"flash_attention": (slots + n_micro) * PLAN_DEPTH,
+                  "flash_attention_bwd": n_micro * PLAN_DEPTH}
+        if any(l[n] != expect[n] for n in expect):
+            fail(f"pipeline ({n_stages}, {n_micro}): launches {l}, expected {expect} ({slots} slots, "
+                 f"{n_micro} microbatches, {PLAN_DEPTH} layers)")
+        for n in launches:
+            launches[n] += l[n]
+        res[f"{n_stages}x{n_micro}"] = dict(seconds=s, peak_gib=gib, out_rel_l2=out_rel,
+                                            grad_rel_l2=grad_rel, launches=l)
+        del got, got_g
+        torch.cuda.empty_cache()
+    del stacked, x, w, want, want_g, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(sequential=dict(seconds=seq_s, peak_gib=seq_gib, launches=seq_l), schedules=res,
+                launches=launches)
+
+
+def planning_phase(device):
+    """Phase 14: (a) the dry-run against the card, (b) the serving tuner and
+    its fastest configuration on the card, (c) the pipeline at full width.
+    Returns its record, with the flash launches of (a)-(c) under
+    ``launches``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch, register
+
+    register(dataclasses.replace(get_arch("glm4-9b"), name=f"glm4-9b-d{PLAN_DEPTH}",
+                                 n_layers=PLAN_DEPTH))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0}
+    for key, label, fn in (("dryrun", "(a)", dryrun_vs_card), ("tuner", "(b)", tuner_phase),
+                           ("pipeline", "(c)", pipeline_phase)):
+        t0 = time.perf_counter()
+        out[key] = fn(device)
+        rec = out[key]["card"]["launches"] if key != "pipeline" else out[key]["launches"]
+        for n in launches:
+            launches[n] += rec[n]
+        print(f"  {label} {time.perf_counter() - t0:.1f} s", flush=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     os.environ["REPRO_BENCH_FULL"] = "1"  # phase 8's scale, read when the harness imports
@@ -2926,7 +3261,17 @@ def main() -> int:
         launches[name] += families["launches"][name]
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 14. results
+    # 14. the LM planning stack
+    t0 = time.perf_counter()
+    print(f"[14] the LM planning stack on {card}: the dry-run of glm4-9b-d{PLAN_DEPTH}'s training "
+          f"step against the card; the serving tuner (10 rounds) and its fastest configuration on "
+          f"the card; pipeline_apply over glm4-9b-d{PLAN_DEPTH}'s blocks at {PIPE_SCHEDULES}", flush=True)
+    planning = planning_phase(device)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += planning["launches"][name]
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 15. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -2937,7 +3282,7 @@ def main() -> int:
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
                       "serve": serve, "efficiency": efficiency, "streaming": streaming,
                       "faults": faults, "sharded": sharded, "training": training,
-                      "families": families,
+                      "families": families, "planning": planning,
                       "corners": corners, "pq_adc": pq_adc_runs,
                       "card": card,
                       "total_s": time.perf_counter() - t_all}))

@@ -1,16 +1,59 @@
-"""Markdown table of the fused-vs-composed search-pipeline records that
-``python -m repro_torch.bench.bench_kernels --json PATH`` writes (the twin
-of ``search_pipeline_table`` in the JAX package's
-``benchmarks/roofline_table.py``; its dry-run roofline tables read XLA
-dry-run artifacts, which the port does not produce yet).
+"""Markdown tables of the port's dry-run records and of the
+fused-vs-composed search-pipeline records (the twin of the JAX package's
+``benchmarks/roofline_table.py``).
 
-    PYTHONPATH=src python -m repro_torch.bench.roofline_table BENCH_fused.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out experiments/dryrun_torch
+    PYTHONPATH=src python -m repro_torch.bench.roofline_table [DRYRUN_DIR] [BENCH_fused.json]
+
+The dry-run writes ``{arch}_{shape}_1.json`` (one device; the reference's
+256- and 512-chip meshes, and its ``multipod_table``, wait for ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
 import json
 import sys
 from pathlib import Path
+
+ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+def fmt_s(v):
+    if v >= 1.0:
+        return f"{v:.2f}s"
+    if v >= 1e-3:
+        return f"{v*1e3:.2f}ms"
+    return f"{v*1e6:.1f}us"
+
+
+def load(d="experiments/dryrun_torch", chips="1"):
+    return [json.loads(f.read_text()) for f in sorted(Path(d).glob(f"*_{chips}.json"))]
+
+
+def markdown_table(d="experiments/dryrun_torch", chips="1") -> str:
+    """One row per (arch, shape) record: the roofline terms on the H100
+    constants, the bound, useful FLOPs over counted FLOPs, the roofline
+    fraction and the temp bytes; SKIP rows for cells without a path."""
+    by_key = {(r["arch"], r["shape"]): r for r in load(d, chips)}
+    lines = [
+        "| arch | shape | compute | memory | collective | bound | useful (6ND/counted) | roofline frac | temp/dev |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for arch in sorted({k[0] for k in by_key}):
+        for shape in ORDER:
+            r = by_key.get((arch, shape))
+            if r is None:
+                continue
+            if "skipped" in r:
+                lines.append(f"| {arch} | {shape} | — | — | — | SKIP: {r['skipped'][:42]} | | | |")
+                continue
+            lines.append(
+                f"| {arch} | {shape} | {fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])} "
+                f"| {fmt_s(r['collective_s'])} | {r['bottleneck']} "
+                f"| {r['useful_ratio']:.2f} | {r['roofline_fraction']:.3f} "
+                f"| {r['memory_analysis']['temp_size_in_bytes']/2**30:.1f} GiB |"
+            )
+    return "\n".join(lines)
 
 
 def search_pipeline_table(path="BENCH_fused.json") -> str:
@@ -35,4 +78,6 @@ def search_pipeline_table(path="BENCH_fused.json") -> str:
 
 
 if __name__ == "__main__":
-    print(search_pipeline_table(*sys.argv[1:2]))
+    print(markdown_table(*sys.argv[1:2]))
+    print()
+    print(search_pipeline_table(*sys.argv[2:3]))

@@ -1,4 +1,11 @@
-"""Architecture configs of the port: the JAX package's ten."""
-from .base import ArchConfig, get_arch, list_archs, reduce, register
+"""Architecture configs of the port (the JAX package's ten) and the input
+shape suites."""
+from .base import (
+    SHAPES, ArchConfig, ShapeConfig, get_arch, input_specs, list_archs,
+    reduce, register, shape_applicable,
+)
 
-__all__ = ["ArchConfig", "get_arch", "list_archs", "reduce", "register"]
+__all__ = [
+    "SHAPES", "ArchConfig", "ShapeConfig", "get_arch", "input_specs",
+    "list_archs", "reduce", "register", "shape_applicable",
+]

@@ -1,13 +1,17 @@
-"""Architecture configuration: a frozen ``ArchConfig`` per model, a registry
-of the ported ones, and ``reduce()`` for the small same-family variant the
-CPU tests run. A copy of the JAX package's ``configs/base.py`` without its
-XLA-only parts (shape suites, ``ShapeDtypeStruct`` input specs, scan
-unrolling); all ten of its architectures are registered."""
+"""Architecture and input-shape configuration: a frozen ``ArchConfig`` per
+model, a registry of the ported ones, ``reduce()`` for the small
+same-family variant the CPU tests run, the four ``ShapeConfig`` suites and
+``input_specs()``, their inputs as tensors on the ``meta`` device (shapes
+and dtypes, no storage) for the dry-run. A copy of the JAX package's
+``configs/base.py`` without scan unrolling (an XLA cost-analysis switch);
+all ten of its architectures are registered."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Dict, Optional, Tuple
+
+import torch
 
 
 def _round_up(v: int, m: int) -> int:
@@ -105,6 +109,21 @@ class ArchConfig:
         return n
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 _ARCH_MODULES = (
     "deepseek_67b", "internlm2_20b", "glm4_9b", "qwen2_5_32b", "mamba2_130m",
     "mixtral_8x7b", "mixtral_8x22b", "seamless_m4t_large_v2", "zamba2_2_7b",
@@ -133,6 +152,14 @@ def list_archs() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs: long_500k needs a sub-quadratic
+    path (SSM, hybrid, or a sliding window)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention architecture: no sub-quadratic path at 512k"
+    return True, ""
+
+
 def reduce(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family variant for CPU smoke tests (f32, 2 layers,
     d_model 128, head dim 32, vocab 512)."""
@@ -158,3 +185,30 @@ def reduce(cfg: ArchConfig) -> ArchConfig:
         dec_target_len=32,
         param_dtype="float32",
     )
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The model inputs of a shape suite as tensors on the ``meta`` device,
+    with the JAX package's shapes and dtypes (int32 tokens; bf16 or f32
+    frame embeddings). The enc-dec backbone takes precomputed source frame
+    embeddings (its speech frontend is a stub); decode is one token a
+    sequence at ``pos``."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    act = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if cfg.family == "encdec":
+        tgt = min(cfg.dec_target_len, max(s // 32, 16))
+        if shape.kind == "train":
+            return {"src_embeds": spec((b, s, cfg.d_model), act), "tgt_tokens": spec((b, tgt + 1), i32)}
+        if shape.kind == "prefill":
+            return {"src_embeds": spec((b, s, cfg.d_model), act), "tgt_tokens": spec((b, tgt), i32)}
+        return {"tokens": spec((b,), i32), "pos": spec((b,), i32)}
+    if shape.kind == "train":
+        return {"tokens": spec((b, s + 1), i32)}
+    if shape.kind == "prefill":
+        return {"tokens": spec((b, s), i32)}
+    return {"tokens": spec((b,), i32), "pos": spec((b,), i32)}

@@ -1,5 +1,6 @@
-"""Sharding rules and segment placement of the port (the counterpart of the
-JAX package's ``distributed``)."""
+"""Sharding rules, segment placement and the pipeline schedule of the port
+(the counterpart of the JAX package's ``distributed``)."""
+from .pipeline import pipeline_apply, sequential_apply
 from .sharding import (
     NamedSharding,
     ShardingRules,
@@ -8,11 +9,13 @@ from .sharding import (
     current_rules,
     make_shard_mesh,
     param_axes_for,
+    params_sharding,
     segment_placement,
     use_rules,
 )
 
 __all__ = [
     "NamedSharding", "ShardMesh", "ShardingRules", "constrain", "current_rules",
-    "make_shard_mesh", "param_axes_for", "segment_placement", "use_rules",
+    "make_shard_mesh", "param_axes_for", "params_sharding", "pipeline_apply",
+    "segment_placement", "sequential_apply", "use_rules",
 ]

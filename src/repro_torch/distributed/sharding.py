@@ -21,10 +21,12 @@ for replicated, a tuple where several mesh axes share a dim), the shape of
 a ``PartitionSpec``; it works with any mesh object that has ``axis_names``
 and a ``shape`` mapping.
 
-The port serves on one device: :func:`make_shard_mesh` describes a
+The port runs on one device: :func:`make_shard_mesh` describes a
 ``("shard",)`` mesh over the CUDA devices present (or the one CPU device),
-and :func:`constrain` is the identity. A dispatch over several devices, and
-``params_sharding`` for the LM stack, are not ported.
+``launch/mesh.py::make_host_mesh`` a 1 x 1 ``("data", "model")`` mesh, and
+:func:`constrain` is the identity. A dispatch over several devices, and
+:func:`params_sharding` for the LM stack, are not ported (ROADMAP Queue 1
+item 10).
 
 The placement contract sharded serving relies on is
 :func:`segment_placement`: contiguous blocks, dead padding at the tail, so
@@ -52,15 +54,25 @@ Spec = Tuple[object, ...]
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
-    """A ``("shard",)`` mesh over torch devices: ``axis_names``, a ``shape``
-    mapping and the devices in axis order."""
+    """A mesh of named axes over torch devices: ``axis_names``, their
+    ``axis_sizes`` (the device count over one ``"shard"`` axis by default),
+    a ``shape`` mapping and the devices in row-major axis order. The
+    serving mesh is ``("shard",)``; the LM stack's ``("data", "model")``."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("shard",)
+    axis_sizes: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        sizes = self.axis_sizes if self.axis_sizes is not None else (len(self.devices),)
+        if len(sizes) != len(self.axis_names) or int(np.prod(sizes)) != len(self.devices):
+            raise ValueError(f"axes {self.axis_names} of sizes {sizes} do not cover "
+                             f"{len(self.devices)} devices")
+        object.__setattr__(self, "axis_sizes", tuple(int(n) for n in sizes))
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"shard": len(self.devices)}
+        return dict(zip(self.axis_names, self.axis_sizes))
 
     @property
     def size(self) -> int:
@@ -254,6 +266,14 @@ _PARAM_AXES_BY_NAME: Dict[str, Tuple[Optional[str], ...]] = {
     "scale": (None,),
     "bias": (None,),
 }
+
+
+def params_sharding(params, rules: ShardingRules):
+    """The reference's per-leaf parameter shardings: not ported. The port
+    trains and serves on one device; sharded parameters are ROADMAP Queue 1
+    item 10."""
+    raise NotImplementedError("params_sharding: the port runs on one device; sharded "
+                              "parameters are ROADMAP Queue 1 item 10")
 
 
 def param_axes_for(path: Tuple[str, ...], shape: Tuple[int, ...]) -> Tuple[Optional[str], ...]:

@@ -8,6 +8,12 @@
 * ``"torch"`` — the plain version on any device (``chip_smoke.py`` runs it
   on the card to hold each kernel against it).
 
+``flash_attention`` also takes ``meta`` tensors (the dry-run's): it returns
+outputs of the right shape and dtype and reports the blocked plain
+version's closed-form cost (``flash_xla.cost``), and the card's kernels'
+least work for the same call (``flash_xla.kernel_cost``), to the dry-run's
+counter.
+
 Each kernel's wrapper counts its launches (:func:`launch_counts`), so a run
 can show that the main path went through the kernels.
 """
@@ -17,6 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import flash_xla
 from .distance import distance_cuda, distance_torch
 from .flash_attention import (FlashAttention, flash_attention_bwd_cuda, flash_attention_cuda,
                               flash_attention_torch)
@@ -110,7 +117,12 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     :class:`~repro_torch.kernels.flash_attention.FlashAttention` (the forward
     kernel with its log-sum-exp, the backward kernel); without a gradient
     the forward kernel alone runs, as at prefill. CPU tensors, and
-    ``impl="torch"``, take the plain forward under autograd."""
+    ``impl="torch"``, take the plain forward under autograd. Meta tensors
+    take :func:`~repro_torch.kernels.flash_xla.flash_attention_meta`:
+    shapes, and the blocked version's cost at the default blocks reported
+    to the dry-run (forward, and backward under autograd); no score matrix."""
+    if q.device.type == "meta":
+        return flash_xla.flash_attention_meta(q, k, v, causal=causal, window=window)
     if not _use_kernel(impl, q):
         return flash_attention_torch(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -32,6 +32,11 @@ _FAMILIES = {
 }
 
 
+#: family -> the ``nn.Module`` class of its weights
+_PARAMS_CLASS = {"dense": "Transformer", "moe": "MoETransformer", "ssm": "Mamba2",
+                 "hybrid": "Zamba2", "encdec": "EncDec"}
+
+
 def family_module(cfg: ArchConfig):
     """The module of ``cfg.family``; an unknown family raises ``ValueError``."""
     if cfg.family not in _FAMILIES:
@@ -74,6 +79,12 @@ def build_model(cfg: ArchConfig, device: Optional[Union[str, torch.device]] = No
     if remat not in transformer.REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; one of {sorted(transformer.REMAT_POLICIES)}")
     return Model(cfg=cfg, module=module, device=resolve_device(device), remat=remat)
+
+
+def meta_params(cfg: ArchConfig) -> torch.nn.Module:
+    """``cfg``'s weights on the ``meta`` device: every parameter's shape and
+    dtype, no storage and no values (the dry-run's)."""
+    return getattr(family_module(cfg), _PARAMS_CLASS[cfg.family])(cfg, torch.device("meta"))
 
 
 def named_from_numpy(cfg: ArchConfig, tree: Mapping) -> dict:

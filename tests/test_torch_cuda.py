@@ -690,3 +690,55 @@ def test_live_replay_runs_kernels_on_card(dev, index_type):
     for a, b in zip(out["composed"], out["fused"]):
         assert set(a[a >= 0]) == set(b[b >= 0])
         assert alive[b[b >= 0]].all()
+
+
+def test_pipeline_over_flash_blocks(dev):
+    """``pipeline_apply`` over two reduced glm4-9b blocks in bf16 (head dim
+    32) on the card: the flash forward and backward kernels run, and the
+    output and every gradient equal the sequential stack's within bf16's
+    limit (2**-6 relative L2, as phase 12 of ``chip_smoke.py`` holds a step)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce
+    from repro_torch.distributed.pipeline import (module_block_fn, pipeline_apply,
+                                                  sequential_apply, stack_blocks)
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(reduce(get_arch("glm4-9b")), n_layers=2, param_dtype="bfloat16")
+    params = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    stacked = {n: t.detach().requires_grad_() for n, t in stack_blocks(params.blocks).items()}
+    fn = module_block_fn(params.blocks[0])
+    x = torch.randn(4, 128, cfg.d_model, device=dev).to(torch.bfloat16).requires_grad_()
+
+    def run(apply):
+        ops.reset_launch_counts()
+        out = apply()
+        grads = torch.autograd.grad(out.float().square().mean(), [x] + list(stacked.values()))
+        return out.detach().float(), [g.float() for g in grads], ops.launch_counts()
+
+    want, want_g, _ = run(lambda: sequential_apply(stacked, x, fn))
+    got, got_g, launches = run(lambda: pipeline_apply(stacked, x, fn, 2, 2))
+    # 3 slots of both stages' one layer each; the backward of the 2
+    # microbatches' blocks (the bubbles' zeros reach no loss)
+    assert launches["flash_attention"] == 3 * 2 and launches["flash_attention_bwd"] == 2 * 2
+    assert float((got - want).norm() / want.norm()) <= 2.0**-6
+    for a, b in zip(got_g, want_g):
+        assert float((a - b).norm() / b.norm()) <= 2.0**-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 48)])
+def test_flash_meta_route_shapes_match_cuda(dev, dtype, causal, window):
+    """``ops.flash_attention``'s meta route gives the CUDA route's output
+    shape and dtype, and under autograd its gradients' shapes and dtypes."""
+    shapes = ((2, 100, 8, 64), (2, 128, 2, 64), (2, 128, 2, 64))
+    for device in (dev, torch.device("meta")):
+        q, k, v = (torch.randn(s, device=device, dtype=dtype).requires_grad_() for s in shapes)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+        with torch.no_grad():
+            plain = ops.flash_attention(q, k, v, causal=causal, window=window)
+        got = [(tuple(t.shape), t.dtype) for t in (out, plain, *grads)]
+        if device.type == "meta":
+            assert got == want
+        want = got

@@ -68,6 +68,17 @@ TUNING_STACK = {
     "repro_torch.checkpoint.manager": "CheckpointManager",
     "repro_torch.data.pipeline": "TokenPipeline",
     "repro_torch.launch.train": "run",
+    "repro_torch.configs.base": "input_specs",
+    "repro_torch.kernels.flash_xla": "set_default_blocks",
+    "repro_torch.distributed.pipeline": "pipeline_apply",
+    "repro_torch.launch.mesh": "make_host_mesh",
+    "repro_torch.launch.hlo_analysis": "Roofline",
+    "repro_torch.launch.dryrun": "lower_cell",
+    "repro_torch.bench.roofline_table": "markdown_table",
+    "repro_torch.tuning.serve_tuner": "ServeTuningEnv",
+    "repro_torch.launch.tune_serving": "main",
+    "repro_torch.launch.serve_lm": "main",
+    "repro_torch.launch.train_lm": "main",
 }
 
 

@@ -40,6 +40,23 @@ def one_thread():
     finally:
         torch.set_num_threads(n)
 
+@pytest.fixture(autouse=True)
+def scoped_registries():
+    """The port's arch and shape registries as they were before each test of
+    a module that imports this fixture: an arch or a shape that a test (or
+    an entry point it calls) registers ends with the test, so no later
+    module sees it. Every arch module is loaded first, so the ones that load
+    on demand are not taken back."""
+    from repro_torch.configs import base
+
+    base.list_archs()
+    saved = [(live, dict(live)) for live in (base._REGISTRY, base.SHAPES)]
+    yield
+    for live, kept in saved:
+        live.clear()
+        live.update(kept)
+
+
 SEVEN = ("FLAT", "IVF_FLAT", "IVF_SQ8", "IVF_PQ", "HNSW", "SCANN", "AUTOINDEX")
 # n = 3000 with 1024-vector segments: two full segments and a sealed
 # partial one (952 vectors + 72 padded slots with gid -1)
