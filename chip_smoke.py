@@ -153,8 +153,29 @@ Phases, each fatal on failure:
      blocks at (2, 4) and (4, 2) stages x microbatches, 8 x 2,048 x 4,096
      bf16 inputs, output and gradients against the sequential stack;
      ``serve_tuner.HBM_PER_DEV`` against the card's ``total_memory``;
- 15. a ``{"kernels": [...]}`` line (the flash rows' launches include phases
-     13's and 14's), then the card line and the device line.
+ 15. the shard dispatch over a ``torch.distributed`` group, one shard a
+     rank (``ShardedVDMS(dispatch="shard_map")``, ranks spawned by
+     ``distributed.spawn_ranks``): ``bench_sharded.run_ranks`` at its full
+     size, phase 11's 4,194,304 x 64 IVF_SQ8 corpus on four gloo ranks
+     sharing the card, rank 0 building it and scattering the blocks, gated
+     by ``check_rank_invariants``: ids and scores equal on every rank
+     (gathered digests), ids and (gid, score-bit) sets equal to ``vmap`` at
+     4 shards, ``direct`` and the unsharded instance, the SQ8 kernel run on
+     every rank (gathered counts, each set to 0 just before and read just
+     after the rank's searches); the SQ8 kernel held against its plain
+     version on rank 1's block (the run's hook); each rank's block bytes
+     and gather ms, a 32-query chunk's ms under ``shard_map`` (the root's
+     clock, gather included) beside ``vmap``'s and ``direct``'s; phase 11's
+     degraded 1 M live states (FLAT, IVF_SQ8, IVF_PQ) over the four ranks,
+     each equal to ``live.search`` with its kernel run on every rank; one
+     nccl rank serving a 262,144-vector corpus under ``shard_map``, ids
+     equal to ``direct``; the launch twins of ``tune_constrained``,
+     ``tune_streaming`` and ``custom_index_family`` at their examples'
+     sizes, counters reset before and read after each. A rank that fails,
+     or ranks that outlive their deadline, fail the script;
+ 16. a ``{"kernels": [...]}`` line (the flash rows' launches include phases
+     13's and 14's, the VDMS rows' phase 15's), then the card line and the
+     device line.
 
 The script sets ``REPRO_BENCH_FULL=1`` in its own process before it imports
 the port (only the benchmark harness reads it), and
@@ -1906,6 +1927,266 @@ def sharded_phase(device):
 
 
 # ---------------------------------------------------------------------------
+# the multi-rank shard dispatch: one shard a process of a torch.distributed
+# group (dispatch="shard_map"), the four gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+P15_RANKS = 4
+P15_JOIN_S = 900.0  # a rank that outlives this fails the phase
+
+
+def p15_window(fn):
+    """``fn()`` with this process's launch counts set to 0 just before and
+    read just after."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    r = fn()
+    return r, ops.launch_counts()
+
+
+def p15_hold(rank, sharded, queries):
+    """``bench_sharded.run_ranks``' hook for phase 15 (a): on rank 1, the
+    fused SQ8 kernel held against its plain version on the rank's own block
+    of the 4 M corpus (a 32-query chunk), and both timed. The ranks' counted
+    searches are done by then, so these launches are not counted."""
+    if rank != 1:
+        return None
+    import torch
+
+    from repro_torch.distributed import rank_device
+
+    case = stack_kernel(sharded.kind, sharded.arrays, sharded.static, sharded.k_seg,
+                        torch.from_numpy(queries[:sharded.batch]).to(rank_device()))
+    err = check_topk(f"{case['name']} on rank 1's block", case["call"](None),
+                     case["call"]("torch"))
+    return dict(kernel=case["name"], shape=case["shape"], max_abs_err=err,
+                ms=cuda_ms(lambda: case["call"](None), 10),
+                plain_ms=cuda_ms(lambda: case["call"]("torch"), 1, warmup=0))
+
+
+def p15_live(rank, work):
+    """One rank of phase 15 (b): rank 0 builds phase 11's degraded 1 M live
+    states, every rank places and searches them in the same order, and each
+    rank's launch counts and result digest are gathered. Rank 0 checks and
+    writes ``work/p15_live.json``. A failed check exits the rank non-zero
+    (``fail``)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import rank_device
+    from repro_torch.vdms import (FaultEvent, FaultInjector, FaultPlan, LiveVDMS, ShardedVDMS,
+                                  make_space, make_trace)
+
+    world = dist.get_world_size()
+    root = rank == 0
+    device = rank_device()
+    out = []
+
+    def gather(obj):
+        seen = [None] * world
+        dist.all_gather_object(seen, obj)
+        return seen
+
+    def broadcast(obj):
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def digest(*arrays):
+        return hashlib.sha256(b"".join(a.tobytes() for a in arrays)).hexdigest()
+
+    t0 = time.perf_counter()
+    space = make_space()
+    trace = make_trace("glove_like", **SHARD_LIVE) if root else None
+    lq = broadcast(trace.queries[:256] if root else None)
+    if root:
+        dead = np.random.default_rng(0).choice(trace.n_base, 2048, replace=False)
+    for fam in SHARD_LIVE_FAMILIES:
+        live = want = None
+        if root:
+            live = LiveVDMS(space.default_config(fam), trace.dim, trace.capacity, seed=0,
+                            device=device)
+            live.bootstrap(trace.base)
+            live.arm_faults(FaultInjector(FaultPlan(
+                events=tuple(FaultEvent("segment_loss", at_tick=1, segment=z)
+                             for z in SHARD_LIVE_LOST),
+                backoff_base_ticks=1_000_000)))
+            live.search(lq, 10)  # the first tick: two segments lost
+            for g in dead:
+                live.delete(int(g))
+            want, _ = live.search(lq, 10)
+            if sorted(live.quarantined) != sorted(SHARD_LIVE_LOST):
+                fail(f"phase 15 (b) {fam}: quarantined {sorted(live.quarantined)}")
+        snap = ShardedVDMS.from_live(live, n_shards=world, dispatch="shard_map")
+        (lids, lscores, _), counts = p15_window(lambda: snap.search(lq, 10, return_scores=True))
+        ranks = gather(dict(launches=counts, digest=digest(lids, lscores)))
+        kernel = SHARD_KERNEL[fam]
+        if root:
+            if len({r["digest"] for r in ranks}) != 1:
+                fail(f"phase 15 (b) {fam}: the ranks returned different ids")
+            if not np.array_equal(lids, want):
+                fail(f"phase 15 (b) {fam}: {world} ranks differ from live.search")
+            if any(r["launches"][kernel] == 0 for r in ranks):
+                fail(f"phase 15 (b) {fam}: {kernel} did not run on every rank")
+            st = snap.stats()
+            out.append(dict(family=fam, n_sealed=snap.n_sealed, n_pad=snap.n_pad,
+                            min_shard_coverage=st["min_shard_coverage"],
+                            launches=[r["launches"] for r in ranks]))
+            print(f"  (b) live {fam} ({snap.n_sealed} sealed, {snap.n_pad} padding) over "
+                  f"{world} ranks = live.search, min shard coverage "
+                  f"{st['min_shard_coverage']:.6f}, {kernel} launches by rank "
+                  f"{[r['launches'][kernel] for r in ranks]}", flush=True)
+        del snap, live
+        gc.collect()
+        torch.cuda.empty_cache()
+    if root:
+        print(f"  (b) {time.perf_counter() - t0:.1f} s", flush=True)
+        (Path(work) / "p15_live.json").write_text(json.dumps(dict(
+            live=out, live_seconds=time.perf_counter() - t0)))
+    return 0
+
+
+def p15_nccl(rank, work):
+    """Phase 15 (c): one nccl rank on the card serves a 262,144-vector
+    IVF_SQ8 corpus under ``shard_map`` (every collective of the dispatch
+    through NCCL); its ids must equal ``direct``'s and the SQ8 kernel must
+    have run."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.bench import bench_sharded
+    from repro_torch.distributed import rank_device
+    from repro_torch.vdms import ShardedVDMS, VDMSInstance, make_dataset
+
+    device = rank_device()
+    ds = make_dataset("glove_like", n=262_144, n_queries=64, dim=64, k=10, seed=0, device=device)
+    inst = VDMSInstance(ds, bench_sharded._config(False), seed=0, device=device)
+    sharded = ShardedVDMS.from_instance(inst, n_shards=1, dispatch="shard_map")
+    (ids, _), counts = p15_window(lambda: sharded.search(ds.queries, 10))
+    direct = ShardedVDMS.from_instance(inst, n_shards=1).search(ds.queries, 10)[0]
+    if dist.get_backend() != "nccl" or sharded.mesh.backend != "nccl":
+        fail("phase 15 (c): the group is not nccl")
+    if not np.array_equal(ids, direct):
+        fail("phase 15 (c): the nccl rank's ids differ from direct's")
+    if counts["fused_ivf_sq8_topk"] == 0:
+        fail("phase 15 (c): the SQ8 kernel did not run")
+    (Path(work) / "p15_nccl.json").write_text(json.dumps(dict(launches=counts,
+                                                                n_sealed=inst.plan.n_sealed)))
+    print(f"  (c) one nccl rank on {device}: {inst.plan.n_sealed} sealed segments, ids = direct, "
+          f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
+    return 0
+
+
+# each twin's kernels that must run (all of them, or any one): the seven
+# defaults open tune_constrained; tune_streaming's 2,048-vector base seals
+# nothing at the defaults' segments (0.75 x 4,096), so only the
+# configurations BO picks with smaller segments reach a kernel;
+# custom_index_family's IVF_PQ and IVF_PQR run the PQ kernel
+P15_TWINS = (("tune_constrained", KERNEL_NAMES, all), ("tune_streaming", KERNEL_NAMES, any),
+             ("custom_index_family", ("fused_ivf_pq_topk",), all))
+
+
+def rank_phase(device):
+    """Phase 15: the shard dispatch over a process group, one shard a rank.
+    (a) ``bench_sharded.run_ranks`` at its full size (phase 11's 4 M corpus)
+    on four gloo ranks sharing the card, gated by ``check_rank_invariants``,
+    the SQ8 kernel held on rank 1's block by the hook :func:`p15_hold`;
+    (b) phase 11's degraded 1 M live states on the four ranks; (c) one nccl
+    rank; (d) the three launch twins at their examples' sizes, each with the
+    launch counts set to 0 just before and read just after. A rank that
+    fails, or ranks that outlive their deadline, fail the phase."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.bench import bench_sharded
+    from repro_torch.distributed import spawn_ranks
+    from repro_torch.kernels import ops
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip-smoke-p15-")
+    try:
+        t0 = time.perf_counter()
+        try:
+            static = bench_sharded.run_ranks(P15_RANKS, quick=False, join_timeout_s=P15_JOIN_S,
+                                             hook=p15_hold)
+            print(f"  (a) {time.perf_counter() - t0:.1f} s", flush=True)
+            spawn_ranks(p15_live, P15_RANKS, backend="gloo", args=(work,),
+                        join_timeout_s=P15_JOIN_S)
+            spawn_ranks(p15_nccl, 1, backend="nccl", args=(work,), join_timeout_s=P15_JOIN_S)
+        except RuntimeError as e:
+            fail(f"phase 15: {e}")
+        out.update(json.loads((Path(work) / "p15_live.json").read_text()))
+        out["nccl"] = json.loads((Path(work) / "p15_nccl.json").read_text())
+        print(f"  (a)-(c) {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n_chunks = -(-static["n_queries"] // static["batch"])
+    for r in static["ranks"]:
+        print(f"  (a) rank {r['rank']} ({r['device']}): block {r['block_bytes']:,} bytes, "
+              f"placed {r['place_s']:.2f} s, launches "
+              f"{ {k: c for k, c in r['launches'].items() if c} }, gather {r['gather_ms']:.4f} ms",
+              flush=True)
+    for name, rec in static["dispatches"].items():
+        clock = " (the root's clock, gather included)" if name == "shard_map" else ""
+        print(f"  (a) {name}: {rec['wall_s'] / n_chunks * 1e3:.3f} ms a chunk of "
+              f"{static['batch']}{clock}, recall "
+              f"{rec['recall']:.4f}, ids = unsharded {rec['equals_unsharded']}, launches "
+              f"{ {k: c for k, c in rec['launches'].items() if c} }", flush=True)
+    held = static["ranks"][1]["hook"]
+    print(f"  (a) {static['n_sealed']} sealed segments of {static['n_base']:,} x {static['dim']} "
+          f"(rank 0 built them in {static['dataset_s'] + static['build_s']:.1f} s); "
+          f"{held['kernel']} on rank 1's block ({held['shape']}): max abs err "
+          f"{held['max_abs_err']:.3e}, kernel {held['ms']:.4f} ms, plain {held['plain_ms']:.4f} ms",
+          flush=True)
+    bad = bench_sharded.check_rank_invariants(static)
+    if bad:
+        fail(f"phase 15 (a): {bad}")
+    out["static"] = static
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for counts in ([r["launches"] for r in static["ranks"]]
+                   + [rec["launches"] for name, rec in static["dispatches"].items()
+                      if name != "shard_map"]
+                   + [c for rec in out["live"] for c in rec["launches"]]
+                   + [out["nccl"]["launches"]]):
+        for name in KERNEL_NAMES:
+            launches[name] += counts[name]
+
+    # (d) the launch twins on the card
+    out["twins"] = {}
+    for twin, needed, how in P15_TWINS:
+        t0 = time.perf_counter()
+        mod = importlib.import_module(f"repro_torch.launch.{twin}")
+        ops.reset_launch_counts()
+        res = mod.run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        secs = time.perf_counter() - t0
+        if twin == "custom_index_family" and not res["ok"]:
+            fail("phase 15 (d): custom_index_family failed its checks")
+        if not how(counts[name] > 0 for name in needed):
+            fail(f"phase 15 (d): {twin} launched {'not every' if how is all else 'none'} of "
+                 f"{needed}")
+        for name in KERNEL_NAMES:
+            launches[name] += counts[name]
+        out["twins"][twin] = dict(seconds=secs, launches=counts)
+        print(f"  (d) {twin}: {secs:.1f} s, launches "
+              f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+    from repro_torch.vdms import registered_names, unregister_family
+
+    if "IVF_PQR" in registered_names():  # custom_index_family registered it
+        unregister_family("IVF_PQR")
+    out["launches"] = launches
+    print(f"  launches of phase 15's paths (every rank, the twins) {launches}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the training phase: the flash backward at glm4-9b's training shape, the
 # trainer at full width, the kernel step against the plain step, resume
 # ---------------------------------------------------------------------------
@@ -3271,7 +3552,18 @@ def main() -> int:
         launches[name] += planning["launches"][name]
     print(f"  phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 15. results
+    # 15. the shard dispatch over a process group, and the launch twins
+    t0 = time.perf_counter()
+    print(f"[15] the shard dispatch over {P15_RANKS} gloo ranks sharing {card}: the "
+          f"4,194,304-vector corpus and the degraded 1 M live states, one shard a rank; one nccl "
+          f"rank; the launch twins of tune_constrained, tune_streaming and custom_index_family",
+          flush=True)
+    ranks = rank_phase(device)
+    for name in KERNEL_NAMES:
+        launches[name] += ranks["launches"][name]
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 16. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -3282,7 +3574,7 @@ def main() -> int:
     print(json.dumps({"seven_defaults": results, "bench": bench, "session": session,
                       "serve": serve, "efficiency": efficiency, "streaming": streaming,
                       "faults": faults, "sharded": sharded, "training": training,
-                      "families": families, "planning": planning,
+                      "families": families, "planning": planning, "ranks": ranks,
                       "corners": corners, "pq_adc": pq_adc_runs,
                       "card": card,
                       "total_s": time.perf_counter() - t_all}))

@@ -24,21 +24,41 @@ beyond), and measures per shard count:
 invariants hold AND the 1→4-shard analytic scaling clears
 ``MIN_QPS_SCALING_1_TO_4`` (when a 4-shard point is in the run).
 
+With ``--ranks N`` (:func:`run_ranks`) the corpus is served instead by N
+spawned processes, one shard a rank (``dispatch="shard_map"`` over a
+``torch.distributed`` group over gloo, which also lets the ranks share one
+card): rank 0 builds it, the others receive their blocks, and each rank's block bytes, kernel launches and result digest are
+gathered. Rank 0 also serves the corpus at ``direct`` (one shard) and
+``vmap`` (N emulated shards) and records wall seconds of each dispatch and
+the ms of one ``all_gather`` of a chunk's partial lists;
+``--check-invariants`` then gates equal ids on every rank, ids and
+(gid, score) sets equal across the three dispatches and the unsharded
+engine, and the 1 M floor (and on the card, the SQ8 kernel launched on
+every rank).
+
     PYTHONPATH=src python -m repro_torch.bench.bench_sharded --device cpu --quick --check-invariants
+    PYTHONPATH=src python -m repro_torch.bench.bench_sharded --device cpu --quick --ranks 4 \
+        --check-invariants
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import shutil
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
+import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, sync
+from ..distributed.sharding import rank_device, spawn_ranks
 from ..kernels import ops
 from ..vdms import ShardedVDMS, VDMSInstance, make_dataset, recall_at_k, replay_query_streams
-from ..vdms.sharded import MIN_QPS_SCALING_1_TO_4
+from ..vdms.sharded import MIN_QPS_SCALING_1_TO_4, gather_partials
 from .common import emit
 
 SHARD_COUNTS = (1, 2, 4)
@@ -183,6 +203,145 @@ def check_invariants(out) -> list:
     return bad
 
 
+# ---------------------------------------------------------------------------
+# one shard a rank: the spawned mode
+# ---------------------------------------------------------------------------
+GATHER_REPEATS = 20
+
+
+def _served(sharded, queries, k):
+    """One dispatch's record: its ids and scores (analytic), wall seconds
+    (first run of the shape apart) and the kernel launches of its searches
+    (this process's counts set to 0 just before and read just after)."""
+    ops.reset_launch_counts()
+    ids, scores, analytic_s = sharded.search(queries, k, mode="analytic", return_scores=True)
+    _, wall_s = sharded.search(queries, k, mode="wall")
+    launches = ops.launch_counts()
+    return ids, scores, dict(dispatch=sharded.dispatch, analytic_s=float(analytic_s),
+                             wall_s=float(wall_s), compile_s=float(sharded.compile_s),
+                             launches=launches)
+
+
+def _rank(rank: int, quick: bool, seed: int, device_arg, sizes, work: str, hook) -> int:
+    """One rank of :func:`run_ranks`; rank 0 writes ``work/out.json``."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    root = rank == 0
+    device = rank_device(device_arg)
+    sz = sizes or _sizes(quick)
+    ds = inst = None
+    out = {}
+    if root:
+        t0 = time.perf_counter()
+        ds = make_dataset("glove_like", n=sz["n_base"], n_queries=sz["n_queries"],
+                          dim=sz["dim"], k=sz["k"], seed=seed, device=device)
+        out["dataset_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inst = VDMSInstance(ds, _config(quick), seed=seed, device=device)
+        out["build_s"] = time.perf_counter() - t0
+    box = [ds.queries if root else None]
+    dist.broadcast_object_list(box, src=0)
+    queries = box[0]
+    t0 = time.perf_counter()
+    sharded = ShardedVDMS.from_instance(inst, n_shards=world, dispatch="shard_map",
+                                        device=device_arg)
+    place_s = time.perf_counter() - t0
+    ids, scores, rec = _served(sharded, queries, sz["k"])
+    # one all_gather of a chunk's partial lists, as the dispatch makes it
+    b, ks = min(sharded.batch, queries.shape[0]), min(sz["k"], sharded.per_shard * sharded.k_seg)
+    pid = torch.zeros((b, ks), dtype=torch.int32, device=device)
+    psc = torch.zeros((b, ks), dtype=torch.float32, device=device)
+    gather_partials(pid, psc, sharded.mesh)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(GATHER_REPEATS):
+        gather_partials(pid, psc, sharded.mesh)
+    sync(device)
+    gather_ms = (time.perf_counter() - t0) / GATHER_REPEATS * 1e3
+    digest = hashlib.sha256(ids.tobytes() + scores.tobytes()).hexdigest()
+    mine = dict(rank=rank, device=str(device), block_bytes=sharded.block_bytes(),
+                place_s=place_s, gather_ms=gather_ms, digest=digest, **rec,
+                hook=hook(rank, sharded, queries) if hook else None)
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    if not root:
+        return 0
+    unsharded = inst.search(queries, sz["k"])
+    sets = _result_set(ids, scores)
+    recall = float(recall_at_k(ids[:, : ds.k], ds.ground_truth))
+    dispatches = {"shard_map": dict(rec, recall=recall, equals_unsharded=bool(
+        np.array_equal(ids, unsharded)), result_sets_match=True, ids_equal=True)}
+    for name, n in (("direct", 1), ("vmap", world)):
+        other = ShardedVDMS.from_instance(inst, n_shards=n, dispatch=name)
+        o_ids, o_scores, o_rec = _served(other, queries, sz["k"])
+        dispatches[name] = dict(o_rec, recall=float(recall_at_k(o_ids[:, : ds.k],
+                                                                 ds.ground_truth)),
+                                equals_unsharded=bool(np.array_equal(o_ids, unsharded)),
+                                result_sets_match=_result_set(o_ids, o_scores) == sets,
+                                ids_equal=bool(np.array_equal(o_ids, ids)))
+        del other
+    out.update(n_base=sz["n_base"], dim=sz["dim"], n_queries=sz["n_queries"], k=sz["k"],
+               n_sealed=int(inst.plan.n_sealed), n_ranks=world, per_shard=sharded.per_shard,
+               n_pad=sharded.n_pad, batch=sharded.batch, device=str(device),
+               backend=sharded.mesh.backend, dispatches=dispatches, ranks=ranks)
+    (Path(work) / "out.json").write_text(json.dumps(out))
+    return 0
+
+
+def run_ranks(world: int, *, quick: bool = True, seed: int = 0, device=None, sizes=None,
+              join_timeout_s: float = 900.0, hook=None):
+    """The benchmark over ``world`` spawned gloo ranks, one shard each (see
+    the module docstring); ``sizes`` overrides :func:`_sizes`. ``hook``, a
+    module-level function (it is pickled to the ranks), is called on every
+    rank as ``hook(rank, sharded, queries)`` after the counted searches and
+    its result stands under ``"hook"`` in that rank's record. Returns rank
+    0's record; raises ``RuntimeError`` when a rank fails or the ranks do
+    not finish within ``join_timeout_s``."""
+    work = tempfile.mkdtemp(prefix="bench-sharded-")
+    try:
+        spawn_ranks(_rank, world, backend="gloo", device=device,
+                    args=(quick, seed, device, sizes, work, hook),
+                    join_timeout_s=join_timeout_s)
+        return json.loads((Path(work) / "out.json").read_text())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def check_rank_invariants(out) -> list:
+    """The gate of the spawned mode: returns violation strings (empty =
+    pass)."""
+    bad = []
+    if len({r["digest"] for r in out["ranks"]}) != 1:
+        bad.append("the ranks returned different ids or scores")
+    for name, rec in out["dispatches"].items():
+        if not rec["equals_unsharded"]:
+            bad.append(f"{name}: ids differ from the unsharded engine's")
+        if not (rec["ids_equal"] and rec["result_sets_match"]):
+            bad.append(f"{name}: ids or (gid, score) sets differ from shard_map's")
+        if rec["recall"] != out["dispatches"]["shard_map"]["recall"]:
+            bad.append(f"{name}: recall differs from shard_map's")
+    if out["device"].startswith("cuda"):
+        for r in out["ranks"]:
+            if r["launches"]["fused_ivf_sq8_topk"] == 0:
+                bad.append(f"rank {r['rank']}: the SQ8 kernel was not launched")
+    if out["n_base"] < 1_000_000:
+        bad.append(f"n_base={out['n_base']} below the 1M-vector floor")
+    return bad
+
+
+def print_ranks(out) -> None:
+    n_chunks = -(-out["n_queries"] // out["batch"])
+    for name, rec in out["dispatches"].items():
+        print(f"{name}: wall {rec['wall_s'] / n_chunks * 1e3:.3f} ms a chunk of {out['batch']}, "
+              f"analytic QPS {out['n_queries'] / rec['analytic_s']:.0f}, recall "
+              f"{rec['recall']:.3f}, ids = unsharded {rec['equals_unsharded']}")
+    for r in out["ranks"]:
+        print(f"rank {r['rank']} ({r['device']}): block {r['block_bytes']} bytes, placed in "
+              f"{r['place_s']:.3f} s, gather {r['gather_ms']:.4f} ms, launches "
+              f"{ {k: c for k, c in r['launches'].items() if c} }")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--quick", action="store_true", help="the smaller corpus (1M vectors)")
@@ -194,16 +353,34 @@ def main(argv=None) -> int:
     p.add_argument("--check-invariants", action="store_true",
                    help="exit 1 unless recall/result-set invariants hold and 1->4 "
                         "scaling clears the gate")
+    p.add_argument("--ranks", type=int, default=0,
+                   help="serve over this many spawned ranks, one shard each")
     args = p.parse_args(argv)
+    if args.ranks:
+        try:
+            out = run_ranks(args.ranks, quick=args.quick, seed=args.seed, device=args.device)
+        except RuntimeError as e:
+            print(f"FAILED: {e}", file=sys.stderr)
+            return 1
+        return _finish(out, check_rank_invariants(out), args, print_ranks)
 
     out = run(seed=args.seed, quick=args.quick, shard_counts=tuple(args.shards),
               device=args.device)
-    violations = check_invariants(out)
+    return _finish(out, check_invariants(out), args, print_shards)
+
+
+def _finish(out, violations, args, show) -> int:
     out["invariant_violations"] = violations
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=2)
+    show(out)
+    for v in violations:
+        print(f"INVARIANT VIOLATION: {v}", file=sys.stderr)
+    return 1 if (args.check_invariants and violations) else 0
 
+
+def print_shards(out) -> None:
     for n, rec in out["shards"].items():
         po = rec["poisson"]
         print(
@@ -213,9 +390,6 @@ def main(argv=None) -> int:
             f"{po['offered_qps']:.0f} p99={po['sojourn_p99_s'] * 1e3:.2f}ms "
             f"util={po['utilization']:.2f}"
         )
-    for v in violations:
-        print(f"INVARIANT VIOLATION: {v}", file=sys.stderr)
-    return 1 if (args.check_invariants and violations) else 0
 
 
 if __name__ == "__main__":

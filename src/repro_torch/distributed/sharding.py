@@ -21,12 +21,15 @@ for replicated, a tuple where several mesh axes share a dim), the shape of
 a ``PartitionSpec``; it works with any mesh object that has ``axis_names``
 and a ``shape`` mapping.
 
-The port runs on one device: :func:`make_shard_mesh` describes a
-``("shard",)`` mesh over the CUDA devices present (or the one CPU device),
-``launch/mesh.py::make_host_mesh`` a 1 x 1 ``("data", "model")`` mesh, and
-:func:`constrain` is the identity. A dispatch over several devices, and
-:func:`params_sharding` for the LM stack, are not ported (ROADMAP Queue 1
-item 10).
+Serving spans devices through a ``torch.distributed`` process group, one
+process a rank: :func:`init_shard_group` starts (or adopts) the default
+group with an explicit backend and a timeout of its own, :func:`spawn_ranks`
+runs a function on N spawned ranks and fails when one of them does, and
+:func:`make_shard_mesh` returns a ``("shard",)`` mesh over the group's ranks
+once the group is up (else over the devices of this one process).
+``launch/mesh.py::make_host_mesh`` is a 1 x 1 ``("data", "model")`` mesh,
+and :func:`constrain` is the identity. :func:`params_sharding` for the LM
+stack is not ported (ROADMAP Queue 1 item 10).
 
 The placement contract sharded serving relies on is
 :func:`segment_placement`: contiguous blocks, dead padding at the tail, so
@@ -38,11 +41,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
+import os
+import shutil
+import tempfile
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 
@@ -57,11 +66,17 @@ class ShardMesh:
     """A mesh of named axes over torch devices: ``axis_names``, their
     ``axis_sizes`` (the device count over one ``"shard"`` axis by default),
     a ``shape`` mapping and the devices in row-major axis order. The
-    serving mesh is ``("shard",)``; the LM stack's ``("data", "model")``."""
+    serving mesh is ``("shard",)``; the LM stack's ``("data", "model")``.
+
+    ``rank`` is set on a mesh over the ranks of a process group: then
+    ``devices[r]`` is rank ``r``'s device, this process is rank ``rank``
+    and holds only ``device``, and ``backend`` is the group's."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("shard",)
     axis_sizes: Optional[Tuple[int, ...]] = None
+    rank: Optional[int] = None
+    backend: Optional[str] = None
 
     def __post_init__(self):
         sizes = self.axis_sizes if self.axis_sizes is not None else (len(self.devices),)
@@ -77,6 +92,19 @@ class ShardMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """This process's device: its rank's on a process-group mesh."""
+        return self.devices[self.rank or 0]
+
+    @property
+    def staging(self) -> torch.device:
+        """Where tensors pass through a collective: the host under ``gloo``
+        (its scatter takes host tensors only; its broadcast and all_gather
+        take CUDA tensors too, but stage them more slowly than a copy to the
+        host does), the rank's device under ``nccl``."""
+        return torch.device("cpu") if self.backend == "gloo" else self.device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,13 +193,182 @@ class ShardingRules:
 
 
 # ---------------------------------------------------------------------------
+# the process group: one process a rank
+# ---------------------------------------------------------------------------
+#: a collective that waits longer than this fails (``init_process_group``'s
+#: timeout), so a rank that hangs ends the run in minutes
+GROUP_TIMEOUT_S = 300.0
+FAILURE_GRACE_S = 5.0
+BACKENDS = ("gloo", "nccl")
+
+
+def group_world_size() -> Optional[int]:
+    """The default process group's world size, None when there is none."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return None
+
+
+def rank_device(device=None) -> torch.device:
+    """This rank's device: ``cuda:(LOCAL_RANK % device_count)`` when
+    ``device`` is None or a CUDA device, the CPU for ``device="cpu"``.
+    ``LOCAL_RANK`` defaults to the group rank (one host)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        local = dist.get_rank() if group_world_size() is not None else 0
+    return torch.device("cuda", int(local) % torch.cuda.device_count())
+
+
+def check_backend(backend: str, world_size: int, device=None) -> None:
+    """Refuse a backend the ranks cannot use: ``nccl`` needs CUDA and one
+    device a rank (NCCL refuses two ranks on one GPU), counting the ranks
+    on this host (``LOCAL_WORLD_SIZE``, else ``world_size``). ``gloo`` runs
+    anywhere, the CPU and ranks sharing one card included. Nothing picks a
+    backend on its own."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend != "nccl":
+        return
+    if resolve_device(device).type != "cuda":
+        raise ValueError("backend='nccl' needs CUDA devices; use backend='gloo' on the CPU")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    n_dev = torch.cuda.device_count()
+    if local > n_dev:
+        raise ValueError(f"backend='nccl' with {local} ranks on {n_dev} CUDA device(s): ranks "
+                         "would share a device, which NCCL refuses; use backend='gloo'")
+
+
+def init_shard_group(backend: str, *, init_method: Optional[str] = None,
+                     world_size: Optional[int] = None, rank: Optional[int] = None,
+                     timeout_s: float = GROUP_TIMEOUT_S, device=None) -> torch.device:
+    """Start the default process group, or adopt the one already running,
+    and return this rank's device (:func:`rank_device`). ``backend`` is
+    explicit (``"gloo"`` or ``"nccl"``, checked by :func:`check_backend`);
+    an adopted group must have been started with it. ``init_method``,
+    ``world_size`` and ``rank`` go to ``init_process_group`` (None there
+    reads the ``env://`` variables); its collectives time out after
+    ``timeout_s``."""
+    if group_world_size() is not None:
+        if dist.get_backend() != backend:
+            raise ValueError(f"the running process group uses {dist.get_backend()!r}, "
+                             f"not {backend!r}")
+        return rank_device(device)
+    world = int(world_size if world_size is not None else os.environ.get("WORLD_SIZE", 1))
+    check_backend(backend, world, device)
+    kw = {k: v for k, v in dict(init_method=init_method, world_size=world_size,
+                                rank=rank).items() if v is not None}
+    dist.init_process_group(backend, timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)  # NCCL's collectives run on the current device
+    return dev
+
+
+def _rank_main(fn, rank, world_size, backend, init_method, device, timeout_s, threads, args):
+    """A spawned rank: its environment, the group, ``fn(rank, *args)``; a
+    non-zero int returned by ``fn`` is the process's exit code."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world_size),
+                      LOCAL_WORLD_SIZE=str(world_size))
+    torch.set_num_threads(threads)
+    init_shard_group(backend, init_method=init_method, world_size=world_size, rank=rank,
+                     timeout_s=timeout_s, device=device)
+    try:
+        code = fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+    if code:
+        raise SystemExit(int(code))
+
+
+def spawn_ranks(fn: Callable, world_size: int, *, backend: str, device=None,
+                args: Sequence = (), join_timeout_s: float = 900.0,
+                timeout_s: float = GROUP_TIMEOUT_S) -> None:
+    """Run ``fn(rank, *args)`` on ``world_size`` spawned processes joined in
+    one process group (``backend``, a ``file://`` rendezvous in a fresh
+    temporary directory). ``spawn``, not ``fork``: CUDA does not survive a
+    fork. ``fn`` must be importable by name (a module-level function). On
+    the GPU the kernels are built once here first, not by every rank.
+
+    Raises ``RuntimeError`` when a rank exits non-zero or the join passes
+    ``join_timeout_s``; the other ranks are then terminated."""
+    import multiprocessing as mp
+
+    check_backend(backend, world_size, device)
+    if resolve_device(device).type == "cuda":
+        from ..kernels import _build
+
+        _build.build_all()
+    threads = max(1, len(os.sched_getaffinity(0)) // world_size)  # the cores this process may use
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="shard-group-")
+    init = f"file://{os.path.join(tmp, 'rendezvous')}"
+    procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
+                         args=(fn, r, world_size, backend, init, device, timeout_s, threads,
+                               tuple(args)))
+             for r in range(world_size)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + join_timeout_s
+        while True:
+            codes = [p.exitcode for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                # a failed rank takes its peers down with it: give them a few
+                # seconds to exit, so the report names every rank that failed
+                grace = time.monotonic() + FAILURE_GRACE_S
+                while any(p.is_alive() for p in procs) and time.monotonic() < grace:
+                    time.sleep(0.05)
+                codes = [p.exitcode for p in procs]
+                failed = ", ".join(f"rank {r} exit {c}" for r, c in enumerate(codes)
+                                   if c not in (None, 0))
+                raise RuntimeError(f"rank(s) failed: {failed}")
+            if all(c == 0 for c in codes):
+                return
+            if time.monotonic() > deadline:
+                late = [r for r, c in enumerate(codes) if c is None]
+                raise RuntimeError(f"ranks {late} did not finish within {join_timeout_s:.0f} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # serving-side segment placement (sharded vector search)
 # ---------------------------------------------------------------------------
 def make_shard_mesh(n_shards: Optional[int] = None, device=None) -> ShardMesh:
-    """1-D serving mesh over the "shard" axis: the CUDA devices present
-    (``device`` None or a CUDA device), or the one CPU device
-    (``device="cpu"``). ``n_shards`` defaults to every such device; asking
-    for more shards than devices is an error."""
+    """1-D serving mesh over the "shard" axis.
+
+    With the default process group initialised (:func:`init_shard_group`)
+    it is a mesh over the group's ranks, one device a rank (each rank's
+    :func:`rank_device`, gathered, so every rank builds the same mesh; the
+    call is collective); ``n_shards``, when given, must equal the world
+    size. Otherwise it is a mesh over this process's devices: the CUDA
+    devices present (``device`` None or a CUDA device), or the one CPU
+    device (``device="cpu"``); ``n_shards`` defaults to every such device,
+    and asking for more shards than devices is an error."""
+    if group_world_size() is not None:
+        world = dist.get_world_size()
+        if n_shards is not None and int(n_shards) != world:
+            raise ValueError(f"n_shards={n_shards} differs from the process group's "
+                             f"{world} ranks")
+        names: List[Optional[str]] = [None] * world
+        dist.all_gather_object(names, str(rank_device(device)))
+        devices = tuple(torch.device(n) for n in names)
+        backend = dist.get_backend()
+        if backend == "nccl" and len(set(devices)) < world:
+            raise ValueError(f"nccl ranks share devices {names}: NCCL needs one device a rank")
+        return ShardMesh(devices, rank=dist.get_rank(), backend=backend)
     dev = resolve_device(device)
     if dev.type == "cuda":
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

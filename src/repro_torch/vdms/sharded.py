@@ -17,13 +17,19 @@ padding at the tail) and searched as
   ``n_shards=1`` results are byte-identical and every shard count returns
   the same (gid, score) sets.
 
-Dispatch modes: ``direct`` (one shard: the stage, then ``merge_topk``) and
-``vmap`` (several shards emulated on one device, the same math). The kernels
-score every segment on its own, so the ``vmap`` leaves run the family's
-stage once over the whole padded stack (one kernel launch) and every
-shard's ``partial_topk`` as one batched stable top-k
+Dispatch modes: ``direct`` (one shard: the stage, then ``merge_topk``),
+``vmap`` (several shards emulated on one device, the same math) and
+``shard_map`` (one shard a rank of a ``torch.distributed`` process group,
+the counterpart of the JAX package's ``shard_map`` over a device mesh). The
+kernels score every segment on its own, so the ``vmap`` leaves run the
+family's stage once over the whole padded stack (one kernel launch) and
+every shard's ``partial_topk`` as one batched stable top-k
 (``merge.shard_partial_topk``), with no host synchronization between
-shards. ``shard_map``, the dispatch over several devices, is not ported.
+shards. Under ``shard_map`` each rank holds only its block of segments
+(rank 0, the root, holds the whole state it was built from), runs the
+stage and its ``partial_topk`` on its own device, and the ranks
+``all_gather`` the partial lists; every rank then finishes the same root
+merge and returns the same ids and scores.
 """
 from __future__ import annotations
 
@@ -32,11 +38,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..distributed.sharding import segment_placement
+from ..distributed.sharding import ShardMesh, group_world_size, make_shard_mesh, segment_placement
 from .datasets import VectorDataset, recall_at_k
 from .engine import VDMSInstance, _bucket, analytic_chunk_seconds, get_search_pipeline
-from .merge import merge_flat, merge_topk, shard_partial_topk
+from .merge import merge_flat, merge_topk, partial_topk, shard_partial_topk
 from .registry import get_family
 
 # sharded additions to the analytic cost model (same convention as the
@@ -119,25 +126,143 @@ def _shard_stage(kind: str, statics: Dict[str, Any], k_seg: int, use_hook: bool)
 
 
 def _sharded_chunk(q, arrays, alive, growing, growing_gids, *, dispatch, kind, statics, k_seg,
-                   topk, n_shards, use_hook, live, return_scores):
+                   topk, n_shards, use_hook, live, return_scores, mesh=None):
     """One query chunk through the two-level merge tree. ``arrays`` carry a
-    flat leading segment axis of ``n_shards * per``; ``alive`` is the global
-    mask (+ sentinel) of the live flavour (ignored when ``live=False``);
-    ``growing`` / ``growing_gids`` are the tail, merged once at the root."""
+    flat leading segment axis of ``n_shards * per`` (under ``shard_map``
+    this rank's block of ``per``, and ``mesh`` is the group's); ``alive`` is
+    the global mask (+ sentinel) of the live flavour (ignored when
+    ``live=False``); ``growing`` / ``growing_gids`` are the tail, merged
+    once at the root."""
     stage = _shard_stage(kind, statics, k_seg, use_hook)
     alive_arg = alive if live else None
     if dispatch == "direct":
         ids, sims = stage(q, arrays)
         return merge_topk(ids, sims, q, growing, growing_gids, topk, alive=alive_arg,
                           return_scores=return_scores)
-    if dispatch != "vmap":
-        raise ValueError(f"dispatch {dispatch!r} is not ported; use 'direct' or 'vmap'")
-    per = arrays["gids"].shape[0] // n_shards
-    k_shard = min(topk, per * k_seg)
-    ids, sims = stage(q, arrays)  # every shard's leaf stage in one pass
-    ids2, sims2 = shard_partial_topk(ids, sims, n_shards, k_shard, alive=alive_arg)
+    if dispatch == "shard_map":
+        per = arrays["gids"].shape[0]
+        ids, sims = stage(q, arrays)  # this rank's leaf, on its own device
+        pid, psc = partial_topk(ids, sims, min(topk, per * k_seg), alive=alive_arg)
+        ids2, sims2 = gather_partials(pid, psc, mesh)
+    elif dispatch == "vmap":
+        per = arrays["gids"].shape[0] // n_shards
+        ids, sims = stage(q, arrays)  # every shard's leaf stage in one pass
+        ids2, sims2 = shard_partial_topk(ids, sims, n_shards, min(topk, per * k_seg),
+                                         alive=alive_arg)
+    else:
+        raise ValueError(f"unknown dispatch {dispatch!r}")
     return merge_flat(ids2, sims2, q, growing, growing_gids, topk, live=live,
                       return_scores=return_scores)
+
+
+# ---------------------------------------------------------------------------
+# the collectives of the shard_map dispatch (every rank calls each, in order)
+# ---------------------------------------------------------------------------
+def _broadcast(t: Optional[torch.Tensor], shape, dtype, mesh: ShardMesh) -> torch.Tensor:
+    """The root's tensor ``t`` on every rank's device. Moved as bytes, so
+    every dtype goes through the backend the same way."""
+    if mesh.rank == 0:
+        buf = t.to(mesh.staging).contiguous()
+    else:
+        buf = torch.empty(shape, dtype=dtype, device=mesh.staging)
+    if buf.numel():
+        dist.broadcast(buf.view(torch.uint8), src=0)
+    return buf.to(mesh.device)
+
+
+def _broadcast_object(obj, mesh: ShardMesh):
+    box = [obj if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def gather_partials(pid: torch.Tensor, psc: torch.Tensor, mesh: ShardMesh):
+    """Every rank's (B, k_shard) partial ids and scores, in one
+    ``all_gather`` of their bytes, concatenated in rank order: (B, n_shards
+    * k_shard), the shard-major flat order of the ``vmap`` dispatch, so the
+    root merge breaks ties as the single-device merge does."""
+    b, ks = pid.shape
+    packed = torch.cat([pid.contiguous().view(torch.uint8), psc.contiguous().view(torch.uint8)],
+                       dim=1).to(mesh.staging)
+    parts = [torch.empty_like(packed) for _ in range(mesh.size)]
+    dist.all_gather(parts, packed)
+    flat = torch.cat(parts, dim=1).to(mesh.device).view(b, mesh.size, -1)
+    n_id = ks * pid.element_size()
+    ids2 = flat[:, :, :n_id].contiguous().view(pid.dtype).reshape(b, -1)
+    sims2 = flat[:, :, n_id:].contiguous().view(psc.dtype).reshape(b, -1)
+    return ids2, sims2
+
+
+def _block(name: str, v: torch.Tensor, r: int, per: int) -> torch.Tensor:
+    """Shard ``r``'s contiguous block of ``per`` segments of ``v``, dead
+    padding appended where the stack runs out."""
+    blk = v[r * per : (r + 1) * per]
+    short = per - blk.shape[0]
+    return _pad_segments(name, blk, short) if short else blk
+
+
+def _scatter_state(state: Optional[Dict[str, Any]], mesh: ShardMesh) -> Dict[str, Any]:
+    """Collective placement: the root (rank 0) holds ``state``; every rank
+    returns its own state, whose ``arrays`` are its block of ``per_shard``
+    segments (``segment_placement``, dead padding at the tail) and the
+    family's shared arrays. The alive mask and the growing tail are
+    replicated; the rest travels as one object, with the root's placement
+    telemetry. No rank but the root sees another rank's block."""
+    root = mesh.rank == 0
+    meta = None
+    if root:
+        n_sealed = int(state["n_sealed"])
+        if n_sealed <= 0:
+            meta = {"error": "nothing sealed to shard: the corpus has no sealed segments"}
+        else:
+            per, _, shard_of = segment_placement(n_sealed, mesh.size)
+            shared = tuple(get_family(state["kind"]).shared_arrays)
+            arrays = state["arrays"]
+            ds = state.get("dataset")
+            meta = {k: v for k, v in state.items()
+                    if k not in ("arrays", "growing", "growing_gids", "alive", "dataset",
+                                 "device")}
+            meta.update(
+                per=per,
+                specs={k: (tuple(v.shape), v.dtype, k in shared) for k, v in arrays.items()},
+                growing=(tuple(state["growing"].shape), state["growing"].dtype),
+                growing_gids=(tuple(state["growing_gids"].shape), state["growing_gids"].dtype),
+                alive=None if state["alive"] is None else len(state["alive"]),
+                telemetry=_telemetry(arrays, shared, mesh.size, per, shard_of, state["alive"]),
+                # what measure() reads on every rank (the vectors stay on the root)
+                dataset=None if ds is None else (ds.name, ds.queries, ds.ground_truth, ds.k),
+            )
+    meta = _broadcast_object(meta, mesh)
+    if "error" in meta:
+        raise ValueError(meta["error"])
+    per, specs, n_alive, ds = (meta.pop(k) for k in ("per", "specs", "alive", "dataset"))
+    tail = {k: meta.pop(k) for k in ("growing", "growing_gids")}
+    out = dict(meta, device=mesh.device)
+    arrays = {}
+    for name, (shape, dtype, shared) in specs.items():
+        if shared:
+            arrays[name] = _broadcast(state["arrays"][name] if root else None, shape, dtype, mesh)
+            continue
+        buf = torch.empty((per,) + shape[1:], dtype=dtype, device=mesh.staging)
+        blocks = None
+        if root:
+            v = state["arrays"][name]
+            blocks = [_block(name, v, r, per).to(mesh.staging).contiguous().view(torch.uint8)
+                      for r in range(mesh.size)]
+        if buf.numel():
+            dist.scatter(buf.view(torch.uint8), blocks, src=0)
+        arrays[name] = buf.to(mesh.device)
+    out["arrays"] = arrays
+    for name, (shape, dtype) in tail.items():
+        out[name] = _broadcast(state[name] if root else None, shape, dtype, mesh)
+    out["alive"] = None
+    if n_alive is not None:
+        alive = torch.from_numpy(np.ascontiguousarray(state["alive"])) if root else None
+        out["alive"] = _broadcast(alive, (n_alive,), torch.bool, mesh).cpu().numpy()
+    out["dataset"] = state["dataset"] if root else (
+        None if ds is None else VectorDataset(ds[0], np.empty((0, int(meta["dim"])), np.float32),
+                                              *ds[1:]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -159,8 +284,18 @@ class ShardedVDMS:
       tail) for sharded serving with the live merge semantics.
 
     It serves on the device its state lives on. ``dispatch="auto"`` picks
-    ``direct`` at one shard and ``vmap`` otherwise; ``"shard_map"`` (several
-    devices) raises.
+    ``direct`` at one shard, ``shard_map`` when an initialised process group
+    has one rank a shard, and ``vmap`` otherwise.
+
+    ``dispatch="shard_map"`` runs over the default ``torch.distributed``
+    process group (``distributed.init_shard_group``; ``mesh`` defaults to
+    ``make_shard_mesh`` over its ranks on ``device``), one shard a rank.
+    Construction and every ``search`` are collective: every rank calls
+    them, in the same order. Rank 0, the root, holds the state (an instance,
+    a live engine or the bulk build's inputs; the other ranks pass None or
+    nothing), the other ranks receive their blocks, and the root's queries
+    are the ones served. Ids, scores, the timing and the search hooks'
+    arguments come out the same on every rank.
     """
 
     def __init__(
@@ -177,11 +312,61 @@ class ShardedVDMS:
         draws=None,
         _state: Optional[Dict[str, Any]] = None,
     ):
-        if _state is None:
+        # --- mesh + dispatch resolution --------------------------------
+        if mesh is not None:
+            if tuple(mesh.axis_names) != ("shard",):
+                raise ValueError(f"expected a ('shard',) mesh, got {mesh.axis_names}")
+            self.n_shards = int(mesh.size) if n_shards is None else int(n_shards)
+            if self.n_shards != mesh.size:
+                raise ValueError("n_shards must match the mesh size when both are given")
+            if mesh.size > 1 and mesh.rank is None:
+                raise ValueError(
+                    "a mesh over several devices of one process is not served: start a "
+                    "process group (distributed.init_shard_group) and use dispatch='shard_map', "
+                    "or emulate the shards on one device (dispatch='vmap')"
+                )
+        else:
+            self.n_shards = 1 if n_shards is None else int(n_shards)
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        world = group_world_size()
+        if dispatch == "auto":
+            if self.n_shards == 1:
+                dispatch = "direct"
+            elif world == self.n_shards:
+                dispatch = "shard_map"
+            else:
+                dispatch = "vmap"
+        if dispatch not in ("direct", "vmap", "shard_map"):
+            raise ValueError(f"unknown dispatch {dispatch!r}")
+        if dispatch == "direct" and self.n_shards != 1:
+            raise ValueError("dispatch='direct' requires n_shards=1")
+        if dispatch == "shard_map":
+            if world is None:
+                raise ValueError(
+                    "dispatch='shard_map' runs one shard a rank of a torch.distributed process "
+                    "group, and none is initialised (distributed.init_shard_group)"
+                )
+            if world != self.n_shards:
+                raise ValueError(f"dispatch='shard_map' needs one rank a shard: {self.n_shards} "
+                                 f"shards on a process group of {world} ranks")
+            if mesh is None:
+                mesh = make_shard_mesh(self.n_shards, device=device)
+            device = mesh.device
+        elif mesh is not None and mesh.rank is not None and mesh.size > 1:
+            raise ValueError("a mesh over a process group's ranks needs dispatch='shard_map'")
+        self.dispatch = dispatch
+        self.mesh = mesh
+
+        # --- the state: built here, or received from the root ----------
+        root = dispatch != "shard_map" or mesh.rank == 0
+        if _state is None and root:
             if dataset is None or config is None:
                 raise ValueError("ShardedVDMS needs (dataset, config) or a _state")
             inst = VDMSInstance(dataset, config, seed=seed, device=device, draws=draws)
             _state = _state_from_instance(inst)
+        if dispatch == "shard_map":
+            _state = _scatter_state(_state, mesh)
         self.dataset = _state.get("dataset")
         self.config = _state.get("config")
         self.kind = _state["kind"]
@@ -198,63 +383,36 @@ class ShardedVDMS:
         if self.n_sealed <= 0:
             raise ValueError("nothing sealed to shard: the corpus has no sealed segments")
 
-        # --- mesh + dispatch resolution --------------------------------
-        if mesh is not None:
-            if tuple(mesh.axis_names) != ("shard",):
-                raise ValueError(f"expected a ('shard',) mesh, got {mesh.axis_names}")
-            self.n_shards = int(mesh.size) if n_shards is None else int(n_shards)
-            if self.n_shards != mesh.size:
-                raise ValueError("n_shards must match the mesh size when both are given")
-            if mesh.size > 1:
-                raise ValueError(
-                    "a mesh over several devices needs dispatch='shard_map', which the port "
-                    "does not have; emulate the shards on one device (dispatch='vmap')"
-                )
-        else:
-            self.n_shards = 1 if n_shards is None else int(n_shards)
-        if self.n_shards < 1:
-            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
-        if dispatch == "auto":
-            dispatch = "direct" if self.n_shards == 1 else "vmap"
-        if dispatch == "shard_map":
-            raise ValueError(
-                "dispatch='shard_map' needs several devices and is not ported; "
-                "use dispatch='vmap' to emulate the shards on one device"
-            )
-        if dispatch not in ("direct", "vmap"):
-            raise ValueError(f"unknown dispatch {dispatch!r}")
-        if dispatch == "direct" and self.n_shards != 1:
-            raise ValueError("dispatch='direct' requires n_shards=1")
-        self.dispatch = dispatch
-        self.mesh = mesh
-
         # --- placement: contiguous blocks, dead tail padding ------------
         self.per_shard, self.n_pad, self.shard_of = segment_placement(
             self.n_sealed, self.n_shards
         )
         family = get_family(self.kind)
         self.shared_arrays = tuple(family.shared_arrays)
-        arrays = dict(_state["arrays"])
-        if self.n_pad:
-            arrays = {
-                k: (v if k in self.shared_arrays else _pad_segments(k, v, self.n_pad))
-                for k, v in arrays.items()
-            }
-        self.arrays = arrays
+        alive = _state["alive"]
+        if dispatch == "shard_map":
+            self.arrays = _state["arrays"]  # this rank's block
+            telemetry = _state["telemetry"]  # the root's, made from its host copy
+        else:
+            arrays = dict(_state["arrays"])
+            telemetry = _telemetry(arrays, self.shared_arrays, self.n_shards, self.per_shard,
+                                   self.shard_of, alive)
+            if self.n_pad:
+                arrays = {
+                    k: (v if k in self.shared_arrays else _pad_segments(k, v, self.n_pad))
+                    for k, v in arrays.items()
+                }
+            self.arrays = arrays
+        # per-shard telemetry from one host copy of the gids, made when the
+        # state was placed: the state is a snapshot, so stats() never reads
+        # the device again
+        self._segments, self._coverage, self._stack_bytes = telemetry
         self.growing = _state["growing"]
         self.growing_gids = _state["growing_gids"]
-        alive = _state["alive"]
         if alive is None:  # static merge: a dummy operand
             alive = np.zeros(1, bool)
         self.alive = torch.from_numpy(np.ascontiguousarray(alive)).to(self.device)
         self.coverage = float(_state.get("coverage", 1.0))
-        # per-shard telemetry from one host copy of the gids, made here: the
-        # state is a snapshot, so stats() never reads the device again
-        self._segments = np.bincount(self.shard_of, minlength=self.n_shards).astype(np.int64)
-        self._coverage = _shard_coverage(
-            arrays["gids"].cpu().numpy().reshape(self.n_shards, -1),
-            alive if self.live else None,
-        )
 
         # serving instrumentation (the metrics ledger attaches here, same
         # contract as LiveVDMS.search_hooks)
@@ -266,28 +424,31 @@ class ShardedVDMS:
 
     # ------------------------------------------------------------------
     @classmethod
-    def from_instance(cls, inst: VDMSInstance, **kw) -> "ShardedVDMS":
-        return cls(_state=_state_from_instance(inst), **kw)
+    def from_instance(cls, inst: Optional[VDMSInstance], **kw) -> "ShardedVDMS":
+        """Place ``inst`` (None on the ranks other than the root under
+        ``shard_map``)."""
+        return cls(_state=None if inst is None else _state_from_instance(inst), **kw)
 
     @classmethod
     def from_live(cls, live, **kw) -> "ShardedVDMS":
         """Snapshot a :class:`LiveVDMS` for sharded serving: sealed bundle,
         tombstone/quarantine-masked alive mask, and the bucketed visible
         tail — the operands ``LiveVDMS.search`` hands its merge, so a
-        1-shard snapshot serves byte-identical results to ``live.search``."""
-        return cls(_state=_state_from_live(live), **kw)
+        1-shard snapshot serves byte-identical results to ``live.search``.
+        ``live`` is None on the ranks other than the root under ``shard_map``."""
+        return cls(_state=None if live is None else _state_from_live(live), **kw)
 
     # ------------------------------------------------------------------
     def _use_hook(self) -> bool:
         mode = self.pipeline or get_search_pipeline()
         return mode == "fused"
 
-    def _dispatch_chunk(self, q, topk: int, return_scores: bool = False):
+    def _dispatch_chunk(self, q, topk: int, return_scores: bool, use_hook: bool):
         return _sharded_chunk(
             q, self.arrays, self.alive, self.growing, self.growing_gids,
             dispatch=self.dispatch, kind=self.kind, statics=self.static, k_seg=self.k_seg,
-            topk=topk, n_shards=self.n_shards, use_hook=self._use_hook(), live=self.live,
-            return_scores=return_scores,
+            topk=topk, n_shards=self.n_shards, use_hook=use_hook, live=self.live,
+            return_scores=return_scores, mesh=self.mesh,
         )
 
     # ------------------------------------------------------------------
@@ -298,7 +459,23 @@ class ShardedVDMS:
         mode charges the deterministic sharded cost model (the critical
         shard's leaf work + root merge overhead); wall mode times each
         chunk's dispatch (query upload, search, results back on the host),
-        its first run of a shape kept apart in ``compile_s``."""
+        its first run of a shape kept apart in ``compile_s``.
+
+        Under ``shard_map`` every rank calls it; the root's arguments are
+        the ones served (the others may pass None for ``queries``), each
+        chunk's queries are broadcast from the root, and wall mode times the
+        root's chunks, the gather included."""
+        group = self.dispatch == "shard_map"
+        use_hook = self._use_hook()
+        if group:
+            if self.mesh.rank == 0:
+                queries = np.asarray(queries, np.float32)
+                call = (queries.shape[0], topk, mode, return_scores, use_hook)
+            else:
+                call = None
+            nq, topk, mode, return_scores, use_hook = _broadcast_object(call, self.mesh)
+            if self.mesh.rank != 0:  # a stand-in: each chunk comes from the root
+                queries = np.zeros((nq, self.dim), np.float32)
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
         b = min(self.batch, max(nq, 1))
@@ -306,12 +483,14 @@ class ShardedVDMS:
         out = np.empty((n_chunks * b, topk), np.int32)
         scores = np.empty((n_chunks * b, topk), np.float32) if return_scores else None
         chunk_s = np.zeros(n_chunks, np.float64)
-        shape_key = (b, topk, self._use_hook(), return_scores)
+        shape_key = (b, topk, use_hook, return_scores)
         dev = self.device
 
         def dispatch(chunk):
-            r = self._dispatch_chunk(torch.from_numpy(np.ascontiguousarray(chunk)).to(dev),
-                                     topk, return_scores)
+            q = torch.from_numpy(np.ascontiguousarray(chunk))
+            if group:
+                q = _broadcast(q, q.shape, q.dtype, self.mesh)
+            r = self._dispatch_chunk(q.to(dev), topk, return_scores, use_hook)
             if return_scores:
                 return r[0].cpu().numpy(), r[1].cpu().numpy()
             return r.cpu().numpy(), None
@@ -334,6 +513,9 @@ class ShardedVDMS:
                 scores[lo : lo + b] = sc
         if mode == "analytic":
             chunk_s[:] = self._analytic_seconds_per_chunk(b)
+        elif group:  # the root's clock, on every rank
+            chunk_s = _broadcast(torch.from_numpy(chunk_s), chunk_s.shape, torch.float64,
+                                 self.mesh).cpu().numpy()
         counts = np.minimum(b, nq - b * np.arange(n_chunks))
         elapsed = float(chunk_s.sum())
         lat = np.repeat(chunk_s / np.maximum(counts, 1), counts)
@@ -383,9 +565,16 @@ class ShardedVDMS:
         return base + self.n_shards * _SHARD_MERGE_OVERHEAD + _SHARD_DISPATCH_OVERHEAD
 
     def memory_gib(self) -> float:
-        b = sum(v.numel() * v.element_size() for v in self.arrays.values())
-        b += self.growing.numel() * self.growing.element_size()
+        """The placed state's size over every shard (padding included) and
+        the tail."""
+        b = self._stack_bytes + self.growing.numel() * self.growing.element_size()
         return b / (1024.0**3)
+
+    def block_bytes(self) -> int:
+        """Bytes of the segment blocks this process holds (its rank's under
+        ``shard_map``, the whole padded stack otherwise)."""
+        return sum(v.numel() * v.element_size() for k, v in self.arrays.items()
+                   if k not in self.shared_arrays)
 
     def measure(self, topk: Optional[int] = None, repeats: int = 3,
                 mode: str = "analytic") -> Dict[str, float]:
@@ -452,6 +641,22 @@ class ShardedVDMS:
 # ---------------------------------------------------------------------------
 # state snapshots
 # ---------------------------------------------------------------------------
+def _telemetry(arrays, shared, n_shards: int, per: int, shard_of: np.ndarray,
+               alive: Optional[np.ndarray]) -> Tuple[np.ndarray, np.ndarray, int]:
+    """From the unpadded stack: real segments per shard, each shard's alive
+    coverage, and the bytes of the placed stack (``n_shards * per``
+    segments of every sharded array, the shared arrays once)."""
+    segments = np.bincount(shard_of, minlength=n_shards).astype(np.int64)
+    gids = arrays["gids"].cpu().numpy()
+    gids = np.concatenate([gids, np.full((n_shards * per - gids.shape[0],) + gids.shape[1:], -1,
+                                         gids.dtype)])
+    coverage = _shard_coverage(gids.reshape(n_shards, -1), alive)
+    nbytes = sum(v.numel() * v.element_size() if k in shared
+                 else n_shards * per * int(np.prod(v.shape[1:])) * v.element_size()
+                 for k, v in arrays.items())
+    return segments, coverage, int(nbytes)
+
+
 def _shard_coverage(gids: np.ndarray, alive: Optional[np.ndarray]) -> np.ndarray:
     """(n_shards, per * seg) host gids -> each shard's alive fraction of its
     real sealed vectors (1.0 without an alive mask; 0.0 for a shard of

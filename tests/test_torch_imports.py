@@ -79,6 +79,9 @@ TUNING_STACK = {
     "repro_torch.launch.tune_serving": "main",
     "repro_torch.launch.serve_lm": "main",
     "repro_torch.launch.train_lm": "main",
+    "repro_torch.launch.tune_constrained": "main",
+    "repro_torch.launch.tune_streaming": "main",
+    "repro_torch.launch.custom_index_family": "main",
 }
 
 

@@ -534,9 +534,11 @@ def test_sharded_entry_points_need_a_device_without_gpu():
 
 
 def test_dispatch_modes():
+    """``shard_map`` needs a process group (one shard a rank) and raises
+    without one; ``tests/test_torch_shard_dist.py`` runs it over one."""
     ds = _dataset(n=2048)
     inst = _instance(ds, segment_max_size=512)
-    with pytest.raises(ValueError, match="shard_map"):
+    with pytest.raises(ValueError, match="shard_map.*process group, and none is initialised"):
         ShardedVDMS.from_instance(inst, n_shards=2, dispatch="shard_map")
     with pytest.raises(ValueError, match="direct"):
         ShardedVDMS.from_instance(inst, n_shards=2, dispatch="direct")
