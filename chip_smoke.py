@@ -173,9 +173,27 @@ Phases, each fatal on failure:
      ``tune_streaming`` and ``custom_index_family`` at their examples'
      sizes, counters reset before and read after each. A rank that fails,
      or ranks that outlive their deadline, fail the script;
- 16. a ``{"kernels": [...]}`` line (the flash rows' launches include phases
-     13's and 14's, the VDMS rows' phase 15's), then the card line and the
-     device line.
+ 16. dense-LM training on a ``("data", "model")`` mesh over a process group
+     (``train.run(mesh=launch.mesh.make_train_mesh(...))``, FSDP over data and
+     tensor parallelism over model): (a) four gloo ranks sharing the card
+     train glm4-9b at full width, depth cut to 2 layers, on (data 2, model
+     2) for 3 steps at 4 x 2,048 tokens, remat "dots", bf16: every step's
+     loss equal on every rank and within ``P16_LOSS_RTOL`` of the same
+     training in this process without a mesh; each rank's flash forward and
+     backward kernels launched (counts set to 0 just before the run and read
+     just after, gathered) and held against their plain versions at the
+     rank's shape (2 x 2,048, 16 q heads over 1 kv head); each rank's step
+     seconds, seconds inside collectives, peak memory and per-kind
+     collective bytes, which must equal the dry-run's virtual count of the
+     same rank's step, printed beside the dry-run's predicted memory;
+     (b) one nccl rank trains the same model on a 1 x 1 mesh, its losses
+     against the unsharded run; (c) the production-mesh dry-run of
+     glm4-9b's train_4k cell at 256 and 512 chips with its collective term,
+     and ``multipod_table``. A rank that fails, or ranks that outlive their
+     deadline, fail the script;
+ 17. a ``{"kernels": [...]}`` line (the flash rows' launches include phases
+     13's, 14's and 16's, the VDMS rows' phase 15's), then the card line and
+     the device line.
 
 The script sets ``REPRO_BENCH_FULL=1`` in its own process before it imports
 the port (only the benchmark harness reads it), and
@@ -2462,10 +2480,10 @@ def train_steps(cfg, device, plain: bool):
                                     global_batch=tcfg.global_batch, seed=tcfg.seed))
     flash, compress, grads = ops.flash_attention, train.compress_grads, []
 
-    def keep(g, ef_state, comp):
+    def keep(g, ef_state, comp, *axes):
         if len(grads) < 2:
             grads.append(g)
-        return compress(g, ef_state, comp)
+        return compress(g, ef_state, comp, *axes)
 
     if plain:
         ops.flash_attention = lambda q, k, v, causal=True, window=None, impl=None: flash(
@@ -3347,6 +3365,235 @@ def planning_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# dense-LM training on a (data, model) mesh over a process group: four gloo
+# ranks sharing the card, one nccl rank, and the production-mesh dry-run
+# ---------------------------------------------------------------------------
+# glm4-9b at full width (d 4,096, 32/2 heads, dh 128, d_ff 13,696, vocab
+# 151,552, bf16), depth cut to 2 layers: gloo stages every collective
+# through the host, about 3.6 GB a rank a step at this size
+P16_DEPTH = 2
+P16_ARCH = f"glm4-9b-d{P16_DEPTH}"
+P16_TRAIN = dict(seq_len=2048, global_batch=4, steps=3, warmup=2, remat="dots", seed=0,
+                 smoke=False, log_every=1000)
+P16_MESH = (2, 2)
+# a rank's attention: 2 of the 4 rows, 16 of the 32 q heads over 1 of the 2 kv heads
+P16_FLASH_SHAPE = (2, 2048, 16, 1, 128)
+# bf16: the mesh sums the row-parallel products' partial sums after rounding
+# each to bf16 (in f32 under gloo), where one device rounds the whole sum
+# once, and the gradients reach the update after a reduce-scatter in other
+# orders; the losses (about 12) then differ in their third or fourth digit
+P16_LOSS_RTOL = 1e-2
+P16_JOIN_S = 600.0  # a rank that outlives this fails the phase
+
+
+def p16_register():
+    import dataclasses
+
+    from repro_torch.configs import get_arch, register
+
+    register(dataclasses.replace(get_arch("glm4-9b"), name=P16_ARCH, n_layers=P16_DEPTH))
+
+
+def p16_hold(device, seed):
+    """A rank's flash forward and backward kernels against their plain
+    versions at the rank's shape (bf16), and both timed: after the counted
+    training, so these launches are not counted."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, dout = flash_bwd_inputs(torch.bfloat16, g, device, P16_FLASH_SHAPE)
+    fwd_err = float((ops.flash_attention(q, k, v).float()
+                     - ops.flash_attention(q, k, v, impl="torch").float()).abs().max())
+    if not fwd_err <= FLASH_TOL["bf16"]:
+        fail(f"phase 16: the rank's flash forward differs by {fwd_err} > {FLASH_TOL['bf16']}")
+    errs = flash_bwd_errors(q, k, v, dout)
+    hold_flash_bwd("bf16", errs, against=f"autograd of the plain forward on {device}")
+
+    def step(impl):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.flash_attention(*leaves, impl=impl).backward(dout)
+
+    return dict(shape=list(P16_FLASH_SHAPE), fwd_max_abs_err=fwd_err, bwd=errs,
+                fwd_ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 5),
+                fwd_plain_ms=cuda_ms(lambda: ops.flash_attention(q, k, v, impl="torch"), 2, warmup=1),
+                fwd_bwd_ms=cuda_ms(lambda: step(None), 5),
+                fwd_bwd_plain_ms=cuda_ms(lambda: step("torch"), 2, warmup=1))
+
+
+def p16_train(rank, work, data, model):
+    """One rank of phase 16 (a) or (b): the mesh over the group, then
+    ``train.run`` with this process's launch counts set to 0 just before
+    and read just after, its peak memory, and (on a mesh of several ranks)
+    its flash kernels held at its shape; writes ``p16_{data}x{model}_{rank}.json``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_train_mesh
+
+    p16_register()
+    mesh = make_train_mesh(data, model)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    ops.reset_launch_counts()
+    out = train.run(train.TrainConfig(arch=P16_ARCH, **P16_TRAIN), mesh=mesh)
+    torch.cuda.synchronize(mesh.device)
+    rec = dict(rank=rank, device=str(mesh.device), backend=mesh.backend, losses=out["losses"],
+               step_s=out["step_s"], collectives=out.get("collectives"),
+               launches=ops.launch_counts(), peak_bytes=torch.cuda.max_memory_allocated(mesh.device))
+    if mesh.size > 1:
+        rec["kernels"] = p16_hold(mesh.device, 16 + rank)
+    Path(work, f"p16_{data}x{model}_{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def p16_dryrun_of_rank(arch):
+    """The dry-run's count of one rank's step of (a): the same model, batch
+    and remat traced on ``meta`` over a virtual 2 x 2 mesh."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import virtual_mesh
+
+    mesh = virtual_mesh(P16_MESH)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=P16_TRAIN["seq_len"],
+                                global_batch=P16_TRAIN["global_batch"])
+    return dryrun._compile_step(get_arch(arch), shape, mesh, ShardingRules(mesh), P16_TRAIN["remat"])
+
+
+def mesh_train_phase(device):
+    """Phase 16: (a) four gloo ranks on (2, 2), (b) one nccl rank on (1, 1),
+    each against the same training without a mesh in this process; (c) the
+    production-mesh dry-run. Returns its record, with the flash launches of
+    (a) and (b) under ``launches``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.bench.roofline_table import multipod_table
+    from repro_torch.distributed import spawn_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, train
+
+    p16_register()
+    out, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0}
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    base = train.run(train.TrainConfig(arch=P16_ARCH, **P16_TRAIN), device=device)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for n in launches:
+        launches[n] += counts[n]
+    out["unsharded"] = dict(losses=base["losses"], step_s=base["step_s"], launches=counts)
+    print(f"  unsharded: losses {base['losses']}, step seconds "
+          f"{[round(t, 4) for t in base['step_s']]} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    virtual = p16_dryrun_of_rank(P16_ARCH)
+    print(f"  dry-run of one rank's step on a virtual {P16_MESH} mesh: collective bytes "
+          f"{virtual['coll_bytes']}, calls {virtual['coll_counts']}, arguments "
+          f"{virtual['arg_bytes']:,} B, temp {virtual['temp'] / 2**30:.3f} GiB "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    work = tempfile.mkdtemp(prefix="chip-smoke-p16-")
+    world = P16_MESH[0] * P16_MESH[1]
+    try:
+        for label, (data, model), backend in (("(a)", P16_MESH, "gloo"), ("(b)", (1, 1), "nccl")):
+            t0 = time.perf_counter()
+            try:
+                spawn_ranks(p16_train, data * model, backend=backend, args=(work, data, model),
+                            join_timeout_s=P16_JOIN_S)
+            except RuntimeError as e:
+                fail(f"phase 16 {label}: {e}")
+            ranks = [json.loads(Path(work, f"p16_{data}x{model}_{r}.json").read_text())
+                     for r in range(data * model)]
+            secs = time.perf_counter() - t0
+            out[label] = dict(mesh=[data, model], backend=backend, seconds=secs, ranks=ranks)
+            for r in ranks:
+                for n in launches:
+                    launches[n] += r["launches"][n]
+            if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+                fail(f"phase 16 {label}: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+            rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], base["losses"])]
+            print(f"  {label} {data} x {model} over {backend} ({secs:.1f} s): losses "
+                  f"{ranks[0]['losses']}, relative to the unsharded run {[f'{x:.3e}' for x in rel]}",
+                  flush=True)
+            if len(rel) != P16_TRAIN["steps"] or not max(rel) <= P16_LOSS_RTOL:
+                fail(f"phase 16 {label}: losses {ranks[0]['losses']} against the unsharded "
+                     f"{base['losses']}: relative {rel} over {P16_LOSS_RTOL}")
+            for r in ranks:
+                if not (r["launches"]["flash_attention"] > 0 and r["launches"]["flash_attention_bwd"] > 0):
+                    fail(f"phase 16 {label}: rank {r['rank']} launched the flash kernels "
+                         f"{r['launches']['flash_attention']} / {r['launches']['flash_attention_bwd']} times")
+                line = (f"  {label} rank {r['rank']} ({r['device']}): step seconds "
+                        f"{[round(t, 4) for t in r['step_s']]}, flash launches "
+                        f"{r['launches']['flash_attention']} forward / "
+                        f"{r['launches']['flash_attention_bwd']} backward, peak memory "
+                        f"{r['peak_bytes'] / 2**30:.3f} GiB")
+                if r["collectives"]:
+                    steps = r["collectives"]
+                    got = [{k: v for k, v in s["bytes"].items() if v} for s in steps]
+                    calls = [{k: v for k, v in s["counts"].items() if v} for s in steps]
+                    line += (f", seconds inside collectives {[round(s['seconds'], 4) for s in steps]}, "
+                             f"bytes a step {got[0]}, calls {calls[0]}")
+                    if any(g != virtual["coll_bytes"] for g in got) or \
+                            any(c != virtual["coll_counts"] for c in calls):
+                        fail(f"phase 16 {label}: rank {r['rank']}'s collectives {got} / {calls} differ "
+                             f"from the dry-run's {virtual['coll_bytes']} / {virtual['coll_counts']}")
+                print(line, flush=True)
+                if label == "(a)":
+                    print(f"  {label} rank {r['rank']}: peak {r['peak_bytes'] / 2**30:.3f} GiB against "
+                          f"the dry-run's arguments + temp "
+                          f"{(virtual['arg_bytes'] + virtual['temp']) / 2**30:.3f} GiB (printed, not "
+                          f"held)", flush=True)
+                    k = r["kernels"]
+                    print(f"  {label} rank {r['rank']} flash at {tuple(k['shape'])} bf16: forward max abs "
+                          f"err {k['fwd_max_abs_err']:.3e}, kernel {k['fwd_ms']:.4f} ms, plain "
+                          f"{k['fwd_plain_ms']:.4f} ms; forward + backward kernel "
+                          f"{k['fwd_bwd_ms']:.4f} ms, plain {k['fwd_bwd_plain_ms']:.4f} ms (the four "
+                          f"ranks share the card)", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (c) the production-mesh dry-run, on meta: no card needed
+    t0 = time.perf_counter()
+    records = Path(tempfile.mkdtemp(prefix="chip-smoke-p16-dryrun-"))
+    try:
+        out["(c)"] = {}
+        for multi_pod in (False, True):
+            roof, meta = dryrun.lower_cell("glm4-9b", "train_4k", multi_pod=multi_pod, remat="dots")
+            rec = {**roof.to_dict(), **meta}
+            (records / f"glm4-9b_train_4k_{roof.chips}.json").write_text(json.dumps(rec))
+            out["(c)"][roof.chips] = dict(coll_breakdown=roof.coll_breakdown,
+                                          coll_counts=roof.coll_counts, collective_s=roof.collective_s,
+                                          compute_s=roof.compute_s, memory_s=roof.memory_s,
+                                          bottleneck=roof.bottleneck, fallbacks=meta["fallbacks"],
+                                          temp=meta["memory_analysis"]["temp_size_in_bytes"])
+            print(f"  (c) glm4-9b train_4k on {roof.mesh} ({roof.chips} chips): compute "
+                  f"{roof.compute_s:.4f} s, memory {roof.memory_s:.4f} s, collective "
+                  f"{roof.collective_s:.4f} s ({roof.bottleneck}); collective bytes "
+                  f"{roof.coll_breakdown}, calls a rank {roof.coll_counts}; temp a rank "
+                  f"{meta['memory_analysis']['temp_size_in_bytes'] / 2**30:.2f} GiB; fallbacks "
+                  f"{meta['fallbacks']}", flush=True)
+            if not (roof.collective_s > 0 and roof.chips == (512 if multi_pod else 256)):
+                fail(f"phase 16 (c): the {roof.chips}-chip dry-run has no collective term")
+        table = multipod_table(str(records))
+        print(table, flush=True)
+        out["(c)"]["multipod_table"] = table
+    finally:
+        shutil.rmtree(records, ignore_errors=True)
+    print(f"  (c) {time.perf_counter() - t0:.1f} s", flush=True)
+    out["virtual"] = {k: virtual[k] for k in ("coll_bytes", "coll_counts", "arg_bytes", "temp")}
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     os.environ["REPRO_BENCH_FULL"] = "1"  # phase 8's scale, read when the harness imports
@@ -3563,7 +3810,17 @@ def main() -> int:
         launches[name] += ranks["launches"][name]
     print(f"  phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 16. results
+    # 16. dense-LM training on a mesh over a process group
+    t0 = time.perf_counter()
+    print(f"[16] {P16_ARCH} (glm4-9b at full width, {P16_DEPTH} layers) trained on a (data "
+          f"{P16_MESH[0]}, model {P16_MESH[1]}) mesh of gloo ranks sharing {card}, and on one nccl "
+          f"rank; the production-mesh dry-run", flush=True)
+    mesh_train = mesh_train_phase(device)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += mesh_train["launches"][name]
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 17. results
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -3575,6 +3832,7 @@ def main() -> int:
                       "serve": serve, "efficiency": efficiency, "streaming": streaming,
                       "faults": faults, "sharded": sharded, "training": training,
                       "families": families, "planning": planning, "ranks": ranks,
+                      "mesh_train": mesh_train,
                       "corners": corners, "pq_adc": pq_adc_runs,
                       "card": card,
                       "total_s": time.perf_counter() - t_all}))

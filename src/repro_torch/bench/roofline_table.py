@@ -5,9 +5,11 @@ fused-vs-composed search-pipeline records (the twin of the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out experiments/dryrun_torch
     PYTHONPATH=src python -m repro_torch.bench.roofline_table [DRYRUN_DIR] [BENCH_fused.json]
 
-The dry-run writes ``{arch}_{shape}_1.json`` (one device; the reference's
-256- and 512-chip meshes, and its ``multipod_table``, wait for ROADMAP
-Queue 1 item 10).
+The dry-run writes ``{arch}_{shape}_1.json`` (one device, ``--mesh host``)
+and ``{arch}_{shape}_256.json`` / ``_512.json`` (one rank over the
+reference's production meshes, ``--mesh single|multi|both``):
+``markdown_table(d, chips)`` reads one of them, :func:`multipod_table` the
+512-chip records.
 """
 from __future__ import annotations
 
@@ -56,6 +58,26 @@ def markdown_table(d="experiments/dryrun_torch", chips="1") -> str:
     return "\n".join(lines)
 
 
+def multipod_table(d="experiments/dryrun_torch") -> str:
+    """One row per 512-chip record: traced or skipped, the temp bytes per
+    device and the sharding fallbacks (the reference's ``multipod_table``)."""
+    rows = load(d, "512")
+    lines = [
+        "| arch | shape | compiled | temp/dev | fallbacks |",
+        "|---|---|---|---|---|",
+    ]
+    for r in rows:
+        if "skipped" in r:
+            lines.append(f"| {r['arch']} | {r['shape']} | SKIP | | |")
+            continue
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | yes "
+            f"| {r['memory_analysis']['temp_size_in_bytes']/2**30:.1f} GiB "
+            f"| {', '.join(r.get('fallbacks', [])) or '—'} |"
+        )
+    return "\n".join(lines)
+
+
 def search_pipeline_table(path="BENCH_fused.json") -> str:
     """Per-family end-to-end per-chunk wall time, composed against fused, as
     a markdown table."""
@@ -79,5 +101,7 @@ def search_pipeline_table(path="BENCH_fused.json") -> str:
 
 if __name__ == "__main__":
     print(markdown_table(*sys.argv[1:2]))
+    print()
+    print(multipod_table(*sys.argv[1:2]))
     print()
     print(search_pipeline_table(*sys.argv[2:3]))

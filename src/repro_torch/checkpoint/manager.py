@@ -14,6 +14,12 @@ package's: one ``arrays.npz`` of the leaves under their "/"-joined paths
 * **Async**: ``save(..., blocking=False)`` copies to the host, then writes
   in a background thread while training goes on.
 * **Bounded**: keeps the newest ``keep`` checkpoints.
+* **Elastic**: on a mesh, ``save(..., shardings=)`` gathers each leaf's
+  full array from the ranks' blocks and rank 0 writes them in the
+  one-device format; ``restore(like, shardings=)`` reads the full arrays
+  and places this rank's blocks under the *current* mesh's shardings. A
+  checkpoint written on a 2 x 2 mesh resumes on one device, and the other
+  way round.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -69,6 +76,51 @@ def _flatten(tree: Any) -> Dict[str, np.ndarray]:
         suffix, arr = _to_numpy(leaf)
         flat[key + suffix] = arr
     return flat
+
+
+def _shardings(shardings: Any) -> Dict[str, Any]:
+    """path -> NamedSharding of a tree of shardings shaped like the saved
+    tree (dicts keyed like a module's parameters, ``AdamWState`` with
+    ``step=None``); leaves without one are absent."""
+    if shardings is None:
+        return {}
+    out: Dict[str, Any] = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}/{k}" if prefix else str(k))
+        elif isinstance(tree, tuple) and not hasattr(tree, "spec"):
+            for part, v in zip(_parts(tree), tree):
+                walk(v, f"{prefix}/{part}" if prefix else part)
+        elif tree is not None:
+            out[prefix] = tree
+
+    walk(shardings, "")
+    return out
+
+
+def _gathered(tree: Any, shardings: Any) -> Any:
+    """``tree``'s leaves as full tensors: each sharded leaf gathered from the
+    ranks' blocks (collective), the others as they are."""
+    from ..distributed.collectives import comm_for
+    from ..distributed.sharding import gather_full
+
+    by_path = _shardings(shardings)
+    flat = {}
+    for key, leaf in _leaves(tree):
+        sh = by_path.get(key)
+        if sh is not None and isinstance(leaf, torch.Tensor):
+            leaf = gather_full(leaf, sh.spec, comm_for(sh.mesh))
+        flat[key] = leaf
+    return flat
+
+
+def _is_writer(shardings: Any) -> bool:
+    """Whether this process writes: rank 0 of a sharded save, or any
+    process of an unsharded one."""
+    return shardings is None or not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def _checksum(arr: np.ndarray) -> str:
@@ -127,17 +179,31 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, blocking: bool = True):
-        """Snapshot ``tree`` (device -> host) and persist it."""
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, blocking: bool = True,
+             shardings: Any = None):
+        """Snapshot ``tree`` (device -> host) and persist it. With
+        ``shardings`` (a tree of ``NamedSharding`` shaped like ``tree``; see
+        :func:`_shardings`) every rank of the mesh must call it: the leaves
+        are gathered whole, and rank 0 writes them; a blocking save ends with
+        a barrier, so every rank sees the checkpoint once it returns."""
         self.wait()  # one in-flight async save at a time
-        flat = _flatten(tree)  # the host copy happens here
-        if blocking:
-            self._write(step, flat, extra or {})
+        if shardings is None:
+            flat = _flatten(tree)  # the host copy happens here
         else:
-            self._thread = threading.Thread(
-                target=self._write, args=(step, flat, extra or {}), daemon=True
-            )
-            self._thread.start()
+            flat = {}
+            for key, leaf in _gathered(tree, shardings).items():
+                suffix, arr = _to_numpy(leaf)
+                flat[key + suffix] = arr
+        if _is_writer(shardings):
+            if blocking:
+                self._write(step, flat, extra or {})
+            else:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, flat, extra or {}), daemon=True
+                )
+                self._thread.start()
+        if shardings is not None and blocking and dist.is_available() and dist.is_initialized():
+            dist.barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -145,23 +211,31 @@ class CheckpointManager:
             self._thread = None
 
     # ------------------------------------------------------------------
-    def restore(self, like: Any, step: Optional[int] = None) -> Tuple[Any, Dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like``: each tensor leaf comes back
         on ``like``'s device in its dtype, a module's parameters and buffers
-        are loaded in place (the module itself is returned). A corrupt
-        checkpoint falls back to the previous step."""
+        are loaded in place (the module itself is returned). With
+        ``shardings`` (see :meth:`save`) the stored full arrays are placed
+        under the current mesh: each rank takes its block of each sharded
+        leaf (an elastic restart: the mesh may differ from the one that
+        saved). A corrupt checkpoint falls back to the previous step."""
         self.wait()
         candidates = self.all_steps() if step is None else [step]
         last_err: Optional[Exception] = None
         for s in reversed(candidates):
             try:
-                return self._restore_step(s, like)
+                return self._restore_step(s, like, shardings)
             except Exception as e:  # corrupted -> try the previous one
                 last_err = e
                 continue
         raise FileNotFoundError(f"no restorable checkpoint in {self.dir}: {last_err}")
 
-    def _restore_step(self, step: int, like: Any) -> Tuple[Any, Dict]:
+    def _restore_step(self, step: int, like: Any, shardings: Any = None) -> Tuple[Any, Dict]:
+        from ..distributed.collectives import comm_for
+        from ..distributed.sharding import local_block
+
+        by_path = _shardings(shardings)
         d = self._step_dir(step)
         manifest = json.loads((d / "MANIFEST.json").read_text())
         data = np.load(d / "arrays.npz")
@@ -173,6 +247,9 @@ class CheckpointManager:
                 raise IOError(f"checksum mismatch for {key} at step {step}")
             if stored.endswith("::bf16"):
                 arr = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+            sh = by_path.get(key)
+            if sh is not None:
+                arr = local_block(torch.as_tensor(arr), sh.spec, comm_for(sh.mesh)).clone()
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: {tuple(arr.shape)} vs {tuple(leaf.shape)}")
             arrays[key] = arr

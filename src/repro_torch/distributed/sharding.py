@@ -21,15 +21,21 @@ for replicated, a tuple where several mesh axes share a dim), the shape of
 a ``PartitionSpec``; it works with any mesh object that has ``axis_names``
 and a ``shape`` mapping.
 
-Serving spans devices through a ``torch.distributed`` process group, one
-process a rank: :func:`init_shard_group` starts (or adopts) the default
-group with an explicit backend and a timeout of its own, :func:`spawn_ranks`
-runs a function on N spawned ranks and fails when one of them does, and
-:func:`make_shard_mesh` returns a ``("shard",)`` mesh over the group's ranks
-once the group is up (else over the devices of this one process).
-``launch/mesh.py::make_host_mesh`` is a 1 x 1 ``("data", "model")`` mesh,
-and :func:`constrain` is the identity. :func:`params_sharding` for the LM
-stack is not ported (ROADMAP Queue 1 item 10).
+Training and serving span devices through a ``torch.distributed`` process
+group, one process a rank: :func:`init_shard_group` starts (or adopts) the
+default group with an explicit backend and a timeout of its own,
+:func:`spawn_ranks` runs a function on N spawned ranks and fails when one of
+them does, and :func:`make_shard_mesh` returns a ``("shard",)`` mesh over the
+group's ranks once the group is up (else over the devices of this one
+process); ``launch/mesh.py::make_train_mesh`` a ``("data", "model")`` mesh.
+
+The LM stack's parameters are laid out by :func:`params_sharding` (the
+reference's specs, by path and shape): :func:`shard_params` cuts each rank's
+block out of the full weights (and records its spec on the parameter,
+``shard_spec``), :func:`gather_params` puts the full tensors back together.
+The model code is explicit SPMD over ``distributed/collectives.py``: where
+the reference annotates an activation for GSPMD, the port writes the
+collective out, so :func:`constrain` is the identity inside a rank.
 
 The placement contract sharded serving relies on is
 :func:`segment_placement`: contiguous blocks, dead padding at the tail, so
@@ -43,11 +49,12 @@ import contextlib
 import dataclasses
 import datetime
 import os
+import re
 import shutil
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -423,8 +430,9 @@ def current_rules() -> Optional[ShardingRules]:
 
 
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
-    """The identity: the port runs on one device, where every constraint
-    is met. Kept so model code can annotate its activations."""
+    """The identity: inside a rank each tensor is already the block the
+    model code placed there (explicit SPMD), so a constraint has nothing to
+    move. Kept so model code can annotate its activations."""
     return x
 
 
@@ -465,14 +473,6 @@ _PARAM_AXES_BY_NAME: Dict[str, Tuple[Optional[str], ...]] = {
 }
 
 
-def params_sharding(params, rules: ShardingRules):
-    """The reference's per-leaf parameter shardings: not ported. The port
-    trains and serves on one device; sharded parameters are ROADMAP Queue 1
-    item 10."""
-    raise NotImplementedError("params_sharding: the port runs on one device; sharded "
-                              "parameters are ROADMAP Queue 1 item 10")
-
-
 def param_axes_for(path: Tuple[str, ...], shape: Tuple[int, ...]) -> Tuple[Optional[str], ...]:
     name = path[-1]
     axes = _PARAM_AXES_BY_NAME.get(name)
@@ -484,3 +484,89 @@ def param_axes_for(path: Tuple[str, ...], shape: Tuple[int, ...]) -> Tuple[Optio
     elif len(shape) != len(axes):
         axes = (None,) * len(shape)
     return axes
+
+
+def params_sharding(params, rules: ShardingRules) -> Dict[str, Optional[NamedSharding]]:
+    """``{name: NamedSharding}`` for every named parameter of a port module
+    (or of a mapping name -> tensor, such as AdamW's moments): the
+    reference's spec for the same leaf (``param_axes_for`` and
+    ``ShardingRules.spec``; None entries without a mesh). The reference
+    stacks a family's blocks into one leaf with a leading layer dim, which
+    its rules leave replicated; the port's per-block parameters
+    (``blocks.<i>.``) share one spec, computed once, so a divisibility
+    fallback is recorded once a stacked leaf, as the reference records it."""
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else dict(params)
+    by_leaf: Dict[Tuple[str, Tuple[int, ...]], Optional[NamedSharding]] = {}
+    out = {}
+    for name, t in named.items():
+        shape = tuple(t.shape)
+        leaf = (re.sub(r"(^|\.)blocks\.\d+\.", r"\1blocks.*.", name), shape)
+        if leaf not in by_leaf:
+            by_leaf[leaf] = rules.sharding(param_axes_for(tuple(name.split(".")), shape), shape)
+        out[name] = by_leaf[leaf]
+    return out
+
+
+def spec_axes(spec: Optional[Spec]) -> Tuple[str, ...]:
+    """The mesh axes a spec splits its tensor over, in spec order."""
+    out: List[str] = []
+    for entry in spec or ():
+        out.extend((entry,) if isinstance(entry, str) else (entry or ()))
+    return tuple(out)
+
+
+def local_block(full: torch.Tensor, spec: Optional[Spec], comm) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (a view): a dim split
+    over mesh axes is cut into their product of equal blocks, block
+    ``comm.index(axes)`` (row-major over the axes, as ``NamedSharding``)."""
+    out = full
+    for dim, entry in enumerate(spec or ()):
+        if entry is None:
+            continue
+        n = comm.size(entry)
+        if out.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split over {entry} ({n})")
+        size = out.shape[dim] // n
+        out = out.narrow(dim, comm.index(entry) * size, size)
+    return out
+
+
+def shard_params(params: torch.nn.Module, shardings: Mapping[str, Optional[NamedSharding]]):
+    """Replace each parameter of ``params`` by this rank's block of it (a
+    copy: the full tensor is freed) and record the spec on it
+    (``param.shard_spec``), in place; returns ``params``. Parameters that
+    already carry a spec are left as they are (it must be the same)."""
+    from .collectives import comm_for
+
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            sh = shardings[name]
+            spec = sh.spec if sh is not None else None
+            if hasattr(p, "shard_spec"):
+                if p.shard_spec != spec:
+                    raise ValueError(f"{name} is sharded as {p.shard_spec}, not {spec}")
+                continue
+            if sh is not None:
+                p.data = local_block(p.data, spec, comm_for(sh.mesh)).clone()
+            p.shard_spec = spec
+    return params
+
+
+def gather_full(t: torch.Tensor, spec: Optional[Spec], comm) -> torch.Tensor:
+    """The full tensor of which ``t`` is this rank's block under ``spec``
+    (collective: every rank of the mesh calls it; no gradient)."""
+    out = t.detach()
+    for dim, entry in enumerate(spec or ()):
+        if entry is not None:
+            out = comm.gather_raw(out, entry, dim)
+    return out
+
+
+def gather_params(params, shardings: Mapping[str, Optional[NamedSharding]]) -> Dict[str, torch.Tensor]:
+    """``{name: full tensor}`` of a sharded module or mapping (collective)."""
+    from .collectives import comm_for
+
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else dict(params)
+    return {n: gather_full(t, shardings[n].spec if shardings[n] is not None else None,
+                           comm_for(shardings[n].mesh if shardings[n] is not None else None))
+            for n, t in named.items()}

@@ -27,8 +27,21 @@ the least work of the card's flash kernels for the same calls
 (``flash_kernels``); :func:`kernel_roofline` swaps one for the other, the
 bound that a step on the card cannot beat.
 Every layer is traced: the reference extrapolated from depths 1 and 2 only
-because XLA counts a loop body once. One device: chips = 1 and no
-collective. A step that cannot be traced is a ``[FAIL]`` with its error.
+because XLA counts a loop body once. A step that cannot be traced is a
+``[FAIL]`` with its error.
+
+``--mesh host`` (the default) traces the step on one device: chips = 1 and
+no collective (``{arch}_{shape}_1.json``). ``--mesh single|multi|both``
+traces one rank's training step over the reference's production mesh
+(``launch/mesh.py::make_production_mesh``, 256 or 512 ``meta`` devices;
+``{arch}_{shape}_256.json`` / ``_512.json``): the rank's blocks of the
+weights and moments (``params_sharding``) and its rows of the batch, the
+model's explicit collectives run by the virtual group, which counts each
+kind's bytes and calls (``distributed/collectives.py``); the ``Roofline``
+takes the per-rank counts times the chips, as the reference scales its
+per-device HLO. The dense family's training cells are sharded; another
+family, or a serving shape, on a mesh raises ``NotImplementedError``
+naming the ROADMAP item it waits for (``[TODO]`` lines, no record).
 """
 from __future__ import annotations
 
@@ -40,20 +53,21 @@ import time
 import traceback
 import weakref
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs.base import SHAPES, get_arch, input_specs, list_archs, shape_applicable
-from ..distributed.sharding import ShardingRules, use_rules
+from ..distributed.collectives import DP_AXES, comm_for
+from ..distributed.sharding import ShardingRules, params_sharding, shard_params, use_rules
 from ..kernels import flash_xla
 from ..models import build_model
 from ..models.api import meta_params
 from ..optim import adamw
 from . import hlo_analysis
-from .mesh import make_host_mesh, make_production_mesh
+from .mesh import make_host_mesh, make_production_mesh, virtual_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -239,12 +253,19 @@ def _unique_bytes(*trees) -> int:
     return n
 
 
-def _step_inputs(cfg, shape) -> Tuple[torch.nn.Module, object, Dict]:
+def _step_inputs(cfg, shape, rules: ShardingRules = None) -> Tuple[torch.nn.Module, object, Dict]:
     """The step's arguments on ``meta``: the weights (with gradients for a
     training step), the AdamW state (training) or the cache (decode, of
-    ``shape.seq_len`` slots), and the batch."""
+    ``shape.seq_len`` slots), and the batch. Over a virtual mesh of several
+    devices: rank 0's blocks of the weights and its rows of the batch."""
     params = meta_params(cfg)
     batch = input_specs(cfg, shape)
+    comm = comm_for(rules.mesh if rules is not None else None)
+    if comm.backend != "none":
+        shard_params(params, params_sharding(params, rules))
+        dp = comm.axes(DP_AXES)
+        rows = shape.global_batch // comm.size(dp)
+        batch = {k: v[comm.index(dp) * rows:(comm.index(dp) + 1) * rows] for k, v in batch.items()}
     if shape.kind == "train":
         params.requires_grad_(True)
         return params, adamw.init_state(params), batch
@@ -254,17 +275,39 @@ def _step_inputs(cfg, shape) -> Tuple[torch.nn.Module, object, Dict]:
     return params, None, batch
 
 
+def _check_sharded(cfg, shape, mesh) -> None:
+    """What the port traces over a mesh of several devices: the dense
+    family's training step, its global batch split evenly over the
+    data-parallel axes."""
+    if mesh is None or mesh.size == 1:
+        return
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a mesh waits for ROADMAP Queue 1 (the MoE's "
+            "expert axis, the SSM and hybrid ssm_inner axis)")
+    if shape.kind != "train":
+        raise NotImplementedError(f"{shape.name}: serving on a mesh (the kv_seq cache axis) waits "
+                                  "for ROADMAP Queue 1")
+    dp = comm_for(mesh).size(DP_AXES)
+    if shape.global_batch % dp:
+        raise ValueError(f"{shape.name}: global batch {shape.global_batch} over {dp} data-parallel ranks")
+
+
 def _compile_step(cfg, shape, mesh, rules: ShardingRules, remat: str) -> Dict:
     """Trace the step of ``cfg`` at ``shape`` on meta tensors under a
     :class:`CostCounter`; returns its counts (``flops``, ``bytes``,
     ``arg_bytes``, ``out_bytes``, ``temp``, ``ops``; attention's share as
     the blocked version and as the card's kernels, ``flash_blocked`` and
-    ``flash_kernels``). ``mesh`` is the 1 x 1 host mesh (one device, no
-    collective)."""
+    ``flash_kernels``; ``coll_bytes`` and ``coll_counts`` per kind). On the
+    1 x 1 host mesh there is no collective; over a virtual mesh of several
+    devices the counts are rank 0's."""
     _check_storage_identity()
+    _check_sharded(cfg, shape, mesh)
     model = build_model(cfg, "meta", remat=remat)
-    params, state, batch = _step_inputs(cfg, shape)
+    params, state, batch = _step_inputs(cfg, shape, rules)
     arg_bytes = _unique_bytes(dict(params.named_parameters()), state, batch)
+    comm = comm_for(mesh if mesh is not None and mesh.size > 1 else None)
+    comm.stats.reset()
     counter = CostCounter()
     with use_rules(rules), counter:
         if shape.kind == "train":
@@ -279,13 +322,16 @@ def _compile_step(cfg, shape, mesh, rules: ShardingRules, remat: str) -> Dict:
         else:
             pos = (cfg.dec_target_len if cfg.family == "encdec" else shape.seq_len) - 1
             outs = model.decode(params, state, batch["tokens"], pos)[:1]
+    coll = {k: v for k, v in comm.stats.bytes.items() if v}
     return {"flops": counter.product_flops, "bytes": counter.bytes, "arg_bytes": arg_bytes,
             "out_bytes": _unique_bytes(outs), "temp": counter.peak, "ops": counter.ops,
-            "flash_blocked": counter.flash_blocked, "flash_kernels": counter.flash_kernels}
+            "flash_blocked": counter.flash_blocked, "flash_kernels": counter.flash_kernels,
+            "coll_bytes": coll, "coll_counts": {k: comm.stats.counts[k] for k in coll}}
 
 
 def _costs_of(traced: Dict) -> Dict:
-    return {"flops": traced["flops"], "bytes": traced["bytes"], "coll_bytes": {}, "coll_counts": {}}
+    return {"flops": traced["flops"], "bytes": traced["bytes"], "coll_bytes": traced["coll_bytes"],
+            "coll_counts": traced["coll_counts"]}
 
 
 def measure_costs(cfg, shape, mesh, remat: str, units=(1, 2)) -> Dict:
@@ -295,19 +341,21 @@ def measure_costs(cfg, shape, mesh, remat: str, units=(1, 2)) -> Dict:
     return _costs_of(_compile_step(cfg, shape, mesh, ShardingRules(mesh), remat))
 
 
-def lower_cell(arch_name: str, shape_name: str, multi_pod: bool = False, remat: str = "dots"):
-    """Trace one (arch, shape) cell on one device. Returns (Roofline, meta),
-    or (None, {"skipped": why}). ``multi_pod`` asks for the reference's
-    production mesh, which is not ported (it raises). The costs are exact:
-    one trace counts every layer."""
+def lower_cell(arch_name: str, shape_name: str, multi_pod: Optional[bool] = None,
+               remat: str = "dots"):
+    """Trace one (arch, shape) cell. Returns (Roofline, meta), or (None,
+    {"skipped": why}). ``multi_pod`` None traces on one device (chips 1, no
+    collective); False and True trace one rank's step over the reference's
+    256- and 512-chip production meshes (``make_production_mesh``), with
+    the collective term: per-rank collective bytes times the chips, as the
+    reference's ``Roofline`` (``src/repro/launch/dryrun.py``). The costs are
+    exact: one trace counts every layer."""
     cfg = get_arch(arch_name)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         return None, {"skipped": why}
-    if multi_pod:
-        make_production_mesh(multi_pod=True)
-    mesh = make_host_mesh("meta")
+    mesh = make_host_mesh("meta") if multi_pod is None else make_production_mesh(multi_pod=multi_pod)
     chips = mesh.size
     mesh_name = "x".join(str(n) for n in mesh.axis_sizes)
     rules = ShardingRules(mesh)
@@ -335,7 +383,9 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool = False, remat: 
     roof = hlo_analysis.Roofline(
         arch=arch_name, shape=shape_name, mesh=mesh_name, chips=chips,
         hlo_flops=costs["flops"] * chips, hlo_bytes=costs["bytes"] * chips,
-        coll_bytes=0.0, coll_breakdown={}, coll_counts={},
+        coll_bytes=float(sum(costs["coll_bytes"].values())) * chips,
+        coll_breakdown={k: int(v * chips) for k, v in costs["coll_bytes"].items()},
+        coll_counts=costs["coll_counts"],
         model_flops=model_flops_for(cfg, shape),
         peak_mem_per_dev=float(traced["temp"]),
     )
@@ -355,10 +405,45 @@ def kernel_roofline(roof: hlo_analysis.Roofline, meta: Dict) -> hlo_analysis.Roo
         hlo_bytes=roof.hlo_bytes + (kernels["bytes"] - blocked["bytes"]) * roof.chips)
 
 
+def _run_cell(arch: str, shape: str, multi_pod: Optional[bool], remat: str, out_dir: Path) -> int:
+    """Trace one cell, print its line and write its record; 1 if it failed."""
+    tag = f"{arch}_{shape}_{ {None: 1, False: 256, True: 512}[multi_pod] }"
+    t0 = time.perf_counter()
+    try:
+        roof, meta = lower_cell(arch, shape, multi_pod=multi_pod, remat=remat)
+    except NotImplementedError as e:
+        print(f"[TODO] {tag}: {e}", flush=True)
+        return 0
+    except Exception as e:  # noqa: BLE001 -- a cell that cannot be traced is reported
+        print(f"[FAIL] {tag}: {type(e).__name__}: {e}", flush=True)
+        traceback.print_exc()
+        return 1
+    if roof is None:
+        print(f"[SKIP] {tag}: {meta['skipped']}", flush=True)
+        record = {"arch": arch, "shape": shape, "skipped": meta["skipped"]}
+    else:
+        record = {**roof.to_dict(), **meta}
+        print(
+            f"[OK] {tag}: compute={roof.compute_s*1e3:.2f}ms "
+            f"memory={roof.memory_s*1e3:.2f}ms coll={roof.collective_s*1e3:.2f}ms "
+            f"bound={roof.bottleneck} useful={roof.useful_ratio:.2f} "
+            f"frac={roof.roofline_fraction:.3f} "
+            f"temp/dev={meta['memory_analysis']['temp_size_in_bytes']/2**30:.2f}GiB "
+            f"(trace {meta['prod_compile_s']:.1f}s, {meta['traced_ops']} ops)",
+            flush=True,
+        )
+    record["wall_s"] = time.perf_counter() - t0
+    (out_dir / f"{tag}.json").write_text(json.dumps(record, indent=1))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=["host", "single", "multi", "both"], default="host",
+                    help="host: one device (_1.json); single / multi / both: one rank over the "
+                         "256- / 512-chip production meshes (_256.json / _512.json)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--remat", default="nothing")
     ap.add_argument("--out", default="experiments/dryrun_torch")
@@ -370,33 +455,11 @@ def main(argv=None):
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     failures = 0
+    meshes = {"host": [None], "single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch}_{shape}_1"
-            t0 = time.perf_counter()
-            try:
-                roof, meta = lower_cell(arch, shape, remat=args.remat)
-            except Exception as e:  # noqa: BLE001 -- a cell that cannot be traced is reported
-                failures += 1
-                print(f"[FAIL] {tag}: {type(e).__name__}: {e}", flush=True)
-                traceback.print_exc()
-                continue
-            if roof is None:
-                print(f"[SKIP] {tag}: {meta['skipped']}", flush=True)
-                record = {"arch": arch, "shape": shape, "skipped": meta["skipped"]}
-            else:
-                record = {**roof.to_dict(), **meta}
-                print(
-                    f"[OK] {tag}: compute={roof.compute_s*1e3:.2f}ms "
-                    f"memory={roof.memory_s*1e3:.2f}ms coll={roof.collective_s*1e3:.2f}ms "
-                    f"bound={roof.bottleneck} useful={roof.useful_ratio:.2f} "
-                    f"frac={roof.roofline_fraction:.3f} "
-                    f"temp/dev={meta['memory_analysis']['temp_size_in_bytes']/2**30:.2f}GiB "
-                    f"(trace {meta['prod_compile_s']:.1f}s, {meta['traced_ops']} ops)",
-                    flush=True,
-                )
-            record["wall_s"] = time.perf_counter() - t0
-            (out_dir / f"{tag}.json").write_text(json.dumps(record, indent=1))
+            for mp in meshes:
+                failures += _run_cell(arch, shape, mp, args.remat, out_dir)
     sys.exit(1 if failures else 0)
 
 

@@ -9,10 +9,20 @@ reader finds the counterpart. The port has no HLO: its dry-run
     memory term     = bytes / (chips * HBM_BW)
     collective term = collective bytes / (chips * NVLINK_BW)
 
-On one card there is no collective: the dry-run records 0 collective bytes
-and an empty breakdown. The reference's ``collective_bytes`` and
-``count_collectives`` parse XLA HLO text and have no counterpart here; a
-multi-card roofline waits for ROADMAP Queue 1 item 10.
+The dry-run counts each rank's collectives by kind (``all-gather``,
+``reduce-scatter``, ``all-reduce``, ``all-to-all``; the bytes of their
+results, as the reference reads them from the HLO), and the ``Roofline``
+takes them times the chips, as the reference scales its per-device HLO. On
+one device there is no collective: 0 bytes and an empty breakdown. The
+reference's ``collective_bytes`` and ``count_collectives`` parse XLA HLO
+text and have no counterpart here.
+
+The collective term prices every byte at one GPU's NVLink rate
+(``NVLINK_BW``, 450 GB/s one way), whichever mesh axis it crosses. A
+16-wide axis of the production mesh spans two 8-GPU NVLink domains, so part
+of its traffic would cross the slower network between nodes: the term is a
+lower bound on the time of the collectives, and no second term prices that
+share.
 
 Hardware constants: NVIDIA H100 80GB HBM3 (SXM), 700 W, as ``nvidia-smi``
 names the card; NVIDIA's data-sheet peaks, dense.

@@ -21,6 +21,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..distributed.sharding import shard_params
 from . import encdec, mamba2, moe, transformer, zamba2
 
 _FAMILIES = {
@@ -94,7 +95,12 @@ def named_from_numpy(cfg: ArchConfig, tree: Mapping) -> dict:
     return family_module(cfg).named_from_numpy(cfg, tree)
 
 
-def params_from_numpy(cfg: ArchConfig, np_params: Mapping) -> torch.nn.Module:
+def params_from_numpy(cfg: ArchConfig, np_params: Mapping,
+                      shardings: Optional[Mapping] = None) -> torch.nn.Module:
     """The port's weights of ``cfg``'s family, on the CPU, holding the JAX
-    package's parameters (its ``init_params`` pytree as numpy arrays)."""
-    return family_module(cfg).params_from_numpy(cfg, np_params)
+    package's parameters (its ``init_params`` pytree as numpy arrays). With
+    ``shardings`` (``distributed.params_sharding``'s ``{name:
+    NamedSharding}``) each parameter is this rank's block of it
+    (``distributed.shard_params``)."""
+    params = family_module(cfg).params_from_numpy(cfg, np_params)
+    return params if shardings is None else shard_params(params, shardings)

@@ -3,6 +3,13 @@ cross-attention, prefill and one decode step against a KV cache), SwiGLU
 MLP, embedding, LM head, the token-chunked LM loss, and the loading of the
 JAX package's parameters by name.
 
+On a mesh (:func:`parallel_context`) training runs in the Megatron style
+over the reference's logical axes: ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+column-parallel over heads / kv heads / ff, ``wo``/``w_down`` row-parallel,
+the QKV biases split on heads, a vocab-parallel embedding and a
+vocab-parallel cross-entropy (:func:`attention_tp`, :func:`embed_tp`,
+:func:`lm_loss_tp`); :class:`Parallel` says where the collectives go.
+
 Plain functions on tensors, in the JAX package's order of casts (the tests
 hold them against ``repro/models/common.py``), and the ``nn.Module``s that
 hold the weights. Weights keep the JAX layout, ``(in, out)``, so a product is
@@ -11,6 +18,8 @@ hold the weights. Weights keep the JAX layout, ``(in, out)``, so a product is
 """
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -20,6 +29,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed import collectives as col
+from ..distributed.sharding import current_rules, spec_axes
 from ..kernels import ops
 
 
@@ -316,3 +327,210 @@ def load_named_(params: nn.Module, named: Mapping[str, np.ndarray]) -> nn.Module
                 raise ValueError(f"{name}: shape {src.shape} does not fit {tuple(dst.shape)}")
             dst.copy_(torch.from_numpy(src))
     return params
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism on a mesh
+# ---------------------------------------------------------------------------
+#: weights whose model-axis block each rank multiplies by (column- or
+#: row-parallel, or the vocab-parallel embedding and head)
+TP_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed", "head")
+
+
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """What one rank computes on a mesh: its ``comm``, the model axis's size
+    ``m`` and this rank's index ``r`` on it, the data-parallel axes ``dp``
+    (of total size ``dp_size``), and the rules' placement of the activations:
+    ``sp`` (the residual stream's sequence split over model, "seq_act"),
+    ``heads`` and ``kv_heads`` (q and k/v heads split over model; a head
+    axis that does not divide falls back to replicated, as the reference's
+    ``constrain`` does)."""
+
+    comm: object
+    m: int
+    r: int
+    dp: Tuple[str, ...]
+    dp_size: int
+    sp: bool
+    heads: bool
+    kv_heads: bool
+
+    def use(self, w: torch.Tensor, partial: bool = False) -> torch.Tensor:
+        """A parameter as the step uses it: its FSDP blocks all-gathered over
+        the data-parallel axes (whose backward reduce-scatters the
+        gradient), and its gradient summed over the data-parallel axes it is
+        replicated on, and over ``model`` when ``partial`` (a parameter
+        replicated over model that meets activations split along it)."""
+        spec = getattr(w, "shard_spec", None)
+        for dim, entry in enumerate(spec or ()):
+            dp = tuple(a for a in spec_axes((entry,)) if a in col.DP_AXES)
+            if dp:  # the rules never split one dim over data and model axes together
+                w = col.all_gather(w, dp, dim, self.comm)
+        split = spec_axes(spec)
+        rep = tuple(a for a in self.dp if a not in split)
+        if partial and "model" not in split:
+            rep += ("model",)
+        return col.copy_to(w, rep, self.comm)
+
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """Into a tensor-parallel region: the sequence all-gathered under
+        ``sp``, else the identity with the gradient summed over model."""
+        return (col.all_gather(h, "model", 1, self.comm) if self.sp
+                else col.copy_to(h, "model", self.comm))
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """Out of one: the partial sums reduce-scattered along the sequence
+        under ``sp``, else all-reduced."""
+        return (col.reduce_scatter(y, "model", 1, self.comm) if self.sp
+                else col.all_reduce(y, "model", self.comm))
+
+
+#: rules -> {(b, s, cfg): Parallel}: a layout is worked out (and its
+#: fallbacks recorded) once a shape, as the reference traces once a shape
+_LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def parallel_context(b: int, s: int, cfg: ArchConfig) -> Optional[Parallel]:
+    """The :class:`Parallel` of a rank that holds ``b`` rows of ``s`` tokens
+    under the active rules (``sharding.use_rules``); None on one device.
+    The placement of the residual stream and of the q and k/v heads is the
+    rules' spec of those activations at the global batch (a fallback is
+    recorded in the rules, as the reference's ``constrain`` records it)."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return None
+    comm = col.comm_for(rules.mesh)
+    if comm.backend == "none":
+        return None
+    known = _LAYOUTS.setdefault(rules, {})
+    if (b, s, cfg) not in known:
+        known[(b, s, cfg)] = _layout(rules, comm, b, s, cfg)
+    return known[(b, s, cfg)]
+
+
+def _layout(rules, comm, b: int, s: int, cfg: ArchConfig) -> Parallel:
+    dp = comm.axes(col.DP_AXES)
+    batch = b * comm.size(dp)
+
+    def on_model(axes, shape):
+        return "model" in spec_axes(rules.spec(axes, shape))
+
+    return Parallel(
+        comm=comm, m=comm.size("model"), r=comm.index("model"), dp=dp, dp_size=comm.size(dp),
+        sp=on_model(("batch", "seq_act", None), (batch, s, cfg.d_model)),
+        heads=on_model(("batch", None, "heads", None), (batch, s, cfg.n_heads, cfg.hd)),
+        kv_heads=on_model(("batch", None, "kv_heads", None), (batch, s, cfg.n_kv_heads, cfg.hd)))
+
+
+def check_tp_layout(params: nn.Module, par: Parallel) -> None:
+    """Every tensor-parallel weight must be split over model: the port has
+    no layout for one that falls back to replicated there."""
+    if par.m == 1:
+        return
+    for name, p in params.named_parameters():
+        if name.rsplit(".", 1)[-1] in TP_WEIGHTS and "model" not in spec_axes(getattr(p, "shard_spec", None)):
+            raise NotImplementedError(f"{name} {tuple(p.shape)} is not split over model "
+                                      f"({getattr(p, 'shard_spec', None)}); the port's tensor "
+                                      "parallelism needs it split")
+
+
+def _rank_kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, par: Parallel):
+    """The k/v heads that this rank's q heads read, when the q heads are
+    split over model and the kv heads are not: rank r holds q heads
+    [r hl, (r + 1) hl), which read kv heads (r hl) // g onwards (g q heads a
+    kv head)."""
+    hl = cfg.n_heads // par.m
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = par.r * hl
+    if g % hl == 0:
+        n = 1
+    elif hl % g == 0 and lo % g == 0:
+        n = hl // g
+    else:
+        raise NotImplementedError(f"{hl} q heads a rank over groups of {g}")
+    k0 = lo // g
+    return k[:, :, k0:k0 + n], v[:, :, k0:k0 + n]
+
+
+def attention_tp(p, x: torch.Tensor, cfg: ArchConfig, par: Parallel) -> torch.Tensor:
+    """Causal self-attention of one rank at positions 0 .. s - 1: ``x``
+    (b, s, d) is the whole sequence (the tensor-parallel region's input),
+    ``p`` holds this rank's column blocks of ``wq``/``wk``/``wv`` (and the
+    biases) and row block of ``wo``. Returns the rank's partial sum of the
+    output (b, s, d), which :meth:`Parallel.exit` reduces. The flash kernels
+    run on the rank's own q heads; kv heads that do not split are gathered
+    and the rank's group sliced out; q heads that do not split are gathered
+    whole, and the rank's block of the output multiplies its ``wo`` rows."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if not par.heads:
+        q = col.all_gather(q, "model", 2, par.comm)
+    if not par.kv_heads:
+        k = col.all_gather(k, "model", 2, par.comm)
+        v = col.all_gather(v, "model", 2, par.comm)
+    q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
+    if par.heads and not par.kv_heads:
+        k, v = _rank_kv_heads(k, v, cfg, par)
+    positions = _positions(b, s, x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window).reshape(b, s, -1)
+    if not par.heads:
+        rows = p.wo.shape[0]
+        out = out[..., par.r * rows:(par.r + 1) * rows]
+    return out @ p.wo
+
+
+def embed_tp(table: torch.Tensor, tokens: torch.Tensor, par: Parallel) -> torch.Tensor:
+    """The vocab-parallel embedding: ``table`` is this rank's block of rows;
+    tokens outside it take zeros, and the rows are summed over model
+    (reduce-scattered along the sequence under ``sp``)."""
+    rows = table.shape[0]
+    local = tokens - par.r * rows
+    inside = (local >= 0) & (local < rows)
+    e = table[torch.where(inside, local, 0)] * inside[..., None].to(table.dtype)
+    return par.exit(e)
+
+
+def lm_loss_tp(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig,
+               par: Parallel, chunk_tokens: int = 8192) -> torch.Tensor:
+    """:func:`lm_loss` with a vocab-parallel head: ``head`` is this rank's
+    column block (d, V / m), ``x`` the whole sequence of this rank's rows.
+    A chunk's log-sum-exp is the global max (an all-reduce of the max) plus
+    the log of the summed exponentials, and its true logit a masked gather,
+    each summed over model; each chunk is checkpointed as in
+    :func:`lm_loss`. The loss is the global token mean: this rank's sum over
+    all data-parallel ranks' tokens, summed over the data-parallel axes."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    lt = labels.reshape(t).long()
+    n_chunks = max(1, t // chunk_tokens)
+    while t % n_chunks:
+        n_chunks -= 1
+    size = t // n_chunks
+    cols = head.shape[1]
+    lo = par.r * cols
+
+    def chunk_loss(xi, li):
+        lf = (xi @ head).float()
+        top = col.all_reduce_max(lf.amax(dim=-1), "model", par.comm)
+        total = col.all_reduce(torch.exp(lf - top[:, None]).sum(dim=-1), "model", par.comm)
+        lse = torch.log(total) + top
+        local = li - lo
+        inside = (local >= 0) & (local < cols)
+        true = torch.gather(lf, 1, torch.where(inside, local, 0)[:, None])[:, 0] * inside
+        true = col.all_reduce(true, "model", par.comm)
+        return torch.sum(lse - true)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        xi, li = xt[i * size:(i + 1) * size], lt[i * size:(i + 1) * size]
+        part = (checkpoint(chunk_loss, xi, li, use_reentrant=False) if torch.is_grad_enabled()
+                else chunk_loss(xi, li))
+        total = total + part
+    return col.all_reduce(total / (t * par.dp_size), par.dp, par.comm)

@@ -7,10 +7,19 @@ and chameleon-34b. The port of ``repro/models/transformer.py``:
 The layer stack is a Python loop over ``Block`` modules where JAX scans
 stacked parameters; KV caches keep the JAX layout, stacked
 ``(n_layers, b, s, kv, hd)``, so the tests compare like with like.
+
+Training on a mesh (rules with a mesh of several devices in force, the
+parameters cut by ``distributed.shard_params``): each block all-gathers its
+FSDP blocks over ``("pod", "data")`` on entry, inside its remat call, so the
+recomputation gathers them again and the gathers' backward reduce-scatters
+the gradients; inside the block the attention and the MLP are tensor
+parallel (``common.attention_tp``, ``common.Parallel``), and the loss is
+vocab-parallel (``common.lm_loss_tp``).
 """
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -138,23 +147,56 @@ def remat_call(fn, *args, remat: str):
     return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
 
+def _block_tp(blk: Block, x: torch.Tensor, cfg: ArchConfig, par: cm.Parallel) -> torch.Tensor:
+    """One block on a mesh: its weights gathered (``Parallel.use``; the norm
+    scales' gradients summed over model when the residual stream is split
+    along the sequence), then the tensor-parallel attention and MLP, each
+    between :meth:`~common.Parallel.enter` and :meth:`~common.Parallel.exit`."""
+    w = {n: par.use(p, partial=par.sp and n.endswith("norm.scale")) for n, p in blk.named_parameters()}
+    attn = SimpleNamespace(**{n[5:]: t for n, t in w.items() if n.startswith("attn.")})
+    mlp = SimpleNamespace(**{n[4:]: t for n, t in w.items() if n.startswith("mlp.")})
+    h = cm.rms_norm(x, w["attn_norm.scale"])
+    x = x + par.exit(cm.attention_tp(attn, par.enter(h), cfg, par))
+    h = cm.rms_norm(x, w["mlp_norm.scale"])
+    return x + par.exit(cm.mlp(mlp, par.enter(h)))
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
             remat: str = "dots") -> torch.Tensor:
     """tokens (b, s) -> final hidden states (b, s, d), each block under
-    :func:`remat_call`."""
-    x = cm.embed(params, tokens)
+    :func:`remat_call`. On a mesh: this rank's rows, and (b, s / model, d)
+    when the rules split the residual stream's sequence."""
+    return _forward(params, tokens, cfg, remat, cm.parallel_context(*tokens.shape, cfg))
+
+
+def _forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, remat: str,
+             par: Optional[cm.Parallel]) -> torch.Tensor:
+    if par is None:
+        x = cm.embed(params, tokens)
+        for blk in params.blocks:
+            x = remat_call(blk, x, remat=remat)
+        return cm.rms_norm(x, params.final_norm.scale)
+    cm.check_tp_layout(params, par)
+    x = cm.embed_tp(par.use(params.embed), tokens, par)
+    block = functools.partial(_block_tp, cfg=cfg, par=par)
     for blk in params.blocks:
-        x = remat_call(blk, x, remat=remat)
-    return cm.rms_norm(x, params.final_norm.scale)
+        x = remat_call(block, blk, x, remat=remat)
+    return cm.rms_norm(x, par.use(params.final_norm.scale, partial=par.sp))
 
 
 def loss_fn(params: Transformer, batch: Mapping[str, torch.Tensor], cfg: ArchConfig,
             remat: str = "dots") -> torch.Tensor:
-    """Next-token cross-entropy of ``batch["tokens"]`` (b, s + 1)."""
+    """Next-token cross-entropy of ``batch["tokens"]`` (b, s + 1); on a mesh
+    the global token mean over every data-parallel rank's rows."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
-    x = forward(params, inp, cfg, remat=remat)
-    return cm.lm_loss(params, x, labels, cfg)
+    par = cm.parallel_context(*inp.shape, cfg)
+    x = _forward(params, inp, cfg, remat, par)
+    if par is None:
+        return cm.lm_loss(params, x, labels, cfg)
+    if cfg.tie_embeddings:
+        raise NotImplementedError("tied embeddings on a mesh")
+    return cm.lm_loss_tp(par.use(params.head), par.enter(x), labels, cfg, par)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@ master copy: the update math runs in f32 and is cast back to the parameter
 dtype), as the JAX package's ``optim/adamw.py``.
 
 Parameters and gradients are mappings name -> tensor (an ``nn.Module`` is
-taken as its ``named_parameters()``). Where the JAX version returns new
+taken as its ``named_parameters()``). On a mesh each rank holds its blocks
+of the parameters, gradients and moments (``distributed.shard_params``);
+the update is elementwise, and only the global norm behind ``grad_clip``
+crosses ranks. Where the JAX version returns new
 arrays, :func:`apply_updates` updates the parameters and the moments in
 place under ``torch.no_grad()``: at glm4-9b's width a second copy of the
 f32 moments would not fit beside the first.
@@ -11,11 +14,14 @@ f32 moments would not fit beside the first.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..distributed.collectives import all_reduce_sum
+from ..distributed.sharding import spec_axes
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -61,20 +67,39 @@ def state_from_numpy(step, m: Mapping[str, np.ndarray], v: Mapping[str, np.ndarr
                       m={n: put(a) for n, a in m.items()}, v={n: put(a) for n, a in v.items()})
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the f32 sum of squares over every leaf."""
-    leaves = list(named(tree).values())
-    total = sum(torch.sum(torch.square(x.float())) for x in leaves)
+def shard_axes(params: Params) -> Dict[str, Tuple[str, ...]]:
+    """name -> the mesh axes its block is split over, for the parameters
+    that carry a spec (``distributed.shard_params``)."""
+    return {n: spec_axes(t.shard_spec) for n, t in named(params).items()
+            if getattr(t, "shard_spec", None) is not None}
+
+
+def global_norm(tree: Params, axes: Optional[Mapping[str, Tuple[str, ...]]] = None) -> torch.Tensor:
+    """sqrt of the f32 sum of squares over every leaf. With ``axes`` (name
+    -> the mesh axes a leaf is split over, :func:`shard_axes`) the leaves
+    are this rank's blocks: the sums of squares of the leaves split over the
+    same axes are added, then summed over those axes, so a leaf counts once
+    however many ranks hold a replica of it."""
+    leaves = named(tree)
+    if not axes:
+        total = sum(torch.sum(torch.square(x.float())) for x in leaves.values())
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    sums: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for n, x in leaves.items():
+        key = tuple(sorted(axes.get(n, ())))
+        part = torch.sum(torch.square(x.float()))
+        sums[key] = sums[key] + part if key in sums else part
+    total = sum(all_reduce_sum(sums[key], key) for key in sorted(sums))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
 def apply_updates(params: Params, grads: Mapping[str, torch.Tensor], state: AdamWState,
                   cfg: AdamWConfig, lr_scale: Union[torch.Tensor, float] = 1.0) -> AdamWState:
-    """One AdamW step: global-norm clip, bias-corrected moments, decoupled
-    weight decay on every leaf. Updates ``params`` and the state's moments
+    """One AdamW step: global-norm clip (the norm of the whole model on a
+    mesh), bias-corrected moments, decoupled weight decay on every leaf. Updates ``params`` and the state's moments
     in place; returns the state with its step advanced."""
     p = named(params)
-    gn = global_norm(grads)
+    gn = global_norm(grads, shard_axes(p))
     clip = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     step = state.step + 1
     stepf = step.float()

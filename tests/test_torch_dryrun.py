@@ -11,6 +11,8 @@ HLO text, which the port does not have (one device, no collective)."""
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -22,13 +24,15 @@ import torch
 import repro.configs.base as ref_base
 from repro.kernels.flash_xla import _forward as jax_flash_forward
 from repro.kernels.flash_xla import flash_attention_xla as jax_flash
-from repro_torch.bench.roofline_table import markdown_table
+from repro_torch.bench.roofline_table import markdown_table, multipod_table
 from repro_torch.configs import (SHAPES, get_arch, input_specs, list_archs, reduce, register,
                                  shape_applicable)
-from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import ShardingRules, params_sharding, spec_axes
 from repro_torch.kernels import flash_xla, ops
 from repro_torch.launch import dryrun, hlo_analysis
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, virtual_mesh
+from repro_torch.models.api import meta_params
 from torch_parity import one_thread  # noqa: F401  (autouse: one torch and one BLAS thread)
 from torch_parity import scoped_registries  # noqa: F401  (autouse: registrations end with the test)
 
@@ -292,10 +296,19 @@ def test_dryrun_steps_trace_on_meta():
 
 
 def test_production_mesh_waits_for_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_production_mesh()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dryrun.lower_cell("glm4-9b", "train_4k", multi_pod=True)
+    """Item 10's LM half is ported for the dense family: the production
+    meshes are the reference's 16 x 16 ("data", "model") and 2 x 16 x 16
+    ("pod", "data", "model") of ``meta`` devices, and a dense training cell
+    lowers over the 512-chip one; the host mesh is still 1 x 1."""
+    single, multi = make_production_mesh(), make_production_mesh(multi_pod=True)
+    assert single.axis_names == ("data", "model") and single.shape == {"data": 16, "model": 16}
+    assert multi.axis_names == ("pod", "data", "model")
+    assert multi.shape == {"pod": 2, "data": 16, "model": 16}
+    assert single.size == 256 and multi.size == 512
+    assert {d.type for d in single.devices + multi.devices} == {"meta"}
+    cfg = register(reduce(get_arch("glm4-9b")))
+    roof, meta = dryrun.lower_cell(cfg.name, "train_4k", multi_pod=True)
+    assert roof.chips == 512 and roof.mesh == "2x16x16" and roof.collective_s > 0
     mesh = make_host_mesh("cpu")
     assert mesh.axis_names == ("data", "model") and mesh.shape == {"data": 1, "model": 1}
     assert mesh.size == 1
@@ -387,3 +400,178 @@ def test_dryrun_reports_a_failed_trace(tmp_path, capsys, monkeypatch):
     assert done.value.code == 1
     assert "[FAIL] glm4-9b-smoke_train_4k_1: RuntimeError: no meta kernel" in capsys.readouterr().out
     assert not list(tmp_path.glob("*.json"))
+
+
+# ---------------------------------------------------------------------------
+# the collective term over a mesh
+# ---------------------------------------------------------------------------
+# the mini dry-run of tests/test_distributed.py: glm4-9b's family at d 256,
+# 8 / 4 heads of 32, d_ff 512, vocab 1,024, 2 layers, f32; 8 x 64 tokens;
+# a (data 2, model 4) mesh; remat "nothing"
+MINI = dict(name="mini", d_model=256, n_heads=8, n_kv_heads=4, head_dim=32, d_ff=512, vocab=1024,
+            n_layers=2)
+MINI_MESH = (2, 4)
+MINI_SHAPE = dict(seq_len=64, global_batch=8)
+
+MINI_REFERENCE = """
+import dataclasses, json
+import jax
+import jax.experimental
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+import numpy as np
+from jax.sharding import Mesh
+from repro.configs.base import get_arch, reduce, SHAPES
+from repro.distributed.sharding import ShardingRules
+from repro.launch import hlo_analysis
+from repro.launch.dryrun import _compile_step
+from repro.launch.dryrun import _compile_step  # sets the 512-device flag before JAX starts
+mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))  # Auto axes
+cfg = dataclasses.replace(reduce(get_arch("glm4-9b")), **MINI)
+shape = dataclasses.replace(SHAPES["train_4k"], **MINI_SHAPE)
+lowered, compiled = _compile_step(cfg, shape, mesh, ShardingRules(mesh), "nothing")
+text = compiled.as_text()
+print(json.dumps({"bytes": hlo_analysis.collective_bytes(text),
+                  "counts": hlo_analysis.count_collectives(text)}))
+"""
+
+
+def _mini():
+    cfg = dataclasses.replace(reduce(get_arch("glm4-9b")), **MINI)
+    return cfg, dataclasses.replace(SHAPES["train_4k"], **MINI_SHAPE)
+
+
+def closed_form(cfg, shape, mesh_sizes):
+    """One rank's collectives in a training step of the dense model under
+    remat "nothing", with the sequence split over model (the rules'
+    default), from the parameter specs and the activations' shapes: per kind
+    the result bytes and the calls. Forward: each FSDP-split weight gathered
+    over data on use (each block's on entry), the residual stream gathered
+    along the sequence into the attention and the MLP and reduce-scattered
+    out of them (the embedding's rows too), the final hidden states
+    gathered, the head gathered, and the vocab-parallel loss's max, sum and
+    true logit all-reduced, the loss over data. Backward: the loss chunk
+    recomputed up to its last saved tensor (max and sum again); each block
+    recomputed up to the MLP's last product (every gather again, the
+    attention's reduce-scatter again); each collective's conjugate; the
+    gradients of the weights not split over data all-reduced (the norm
+    scales over data and model, the sequence being split); the global norm's
+    two sums, over (data, model) and over model."""
+    data, model = mesh_sizes
+    rules = ShardingRules(virtual_mesh(mesh_sizes))
+    params = meta_params(cfg)
+    specs = {n: sh.spec for n, sh in params_sharding(params, rules).items()}
+    item = 4 if cfg.param_dtype == "float32" else 2
+    sizes = {"data": data, "model": model}
+
+    def nbytes(name, gathered):
+        n = 1
+        for dim, entry in zip(params.get_parameter(name).shape, specs[name]):
+            axes = spec_axes((entry,))
+            n *= dim // int(np.prod([sizes[a] for a in axes if a != "data" or not gathered], initial=1))
+        return n * item
+
+    b, s, d = shape.global_batch // data, shape.seq_len, cfg.d_model
+    full, part, tokens = b * s * d * item, b * (s // model) * d * item, b * s
+    ag, rs, ar = [], [], []
+    fsdp = [n for n in specs if "data" in spec_axes(specs[n])]
+    other = [n for n in specs if n not in fsdp]
+    blocks = [[n for n in specs if n.startswith(f"blocks.{i}.")] for i in range(cfg.n_layers)]
+    # forward
+    ag.append(nbytes("embed", True))
+    rs.append(part)
+    for names in blocks:
+        ag += [nbytes(n, True) for n in names if n in fsdp] + [full, full]
+        rs += [part, part]
+    ag += [full, nbytes("head", True)]
+    ar += [tokens * 4] * 3 + [4]
+    # backward
+    ar += [tokens * 4] * 2
+    rs += [nbytes("head", False), part]
+    ar += [nbytes("final_norm.scale", False)]
+    for names in blocks:
+        ag += [nbytes(n, True) for n in names if n in fsdp] + [full, full]
+        rs += [part]
+        ag += [full, full]
+        rs += [part, part] + [nbytes(n, False) for n in names if n in fsdp]
+        ar += [nbytes(n, False) for n in names if n in other]
+    ag.append(full)
+    rs.append(nbytes("embed", False))
+    ar += [4, 4]
+    return ({"all-gather": sum(ag), "reduce-scatter": sum(rs), "all-reduce": sum(ar)},
+            {"all-gather": len(ag), "reduce-scatter": len(rs), "all-reduce": len(ar)})
+
+
+def test_virtual_collectives_equal_the_closed_form(capfd):
+    """The mini dry-run of ``tests/test_distributed.py`` on a (2, 4) mesh:
+    the virtual group's per-kind bytes and calls equal :func:`closed_form`.
+    The reference's compiled breakdown for the same step on an Auto (2, 4)
+    mesh is printed beside them, not held: GSPMD chooses its own
+    collectives."""
+    cfg, shape = _mini()
+    mesh = virtual_mesh(MINI_MESH)
+    traced = dryrun._compile_step(cfg, shape, mesh, ShardingRules(mesh), "nothing")
+    want_bytes, want_counts = closed_form(cfg, shape, MINI_MESH)
+    assert traced["coll_bytes"] == want_bytes
+    assert traced["coll_counts"] == want_counts
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    env.pop("XLA_FLAGS", None)
+    code = (f"MINI = {MINI!r}\nMINI_SHAPE = {MINI_SHAPE!r}\n") + MINI_REFERENCE
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=300, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr[-2000:]
+    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    with capfd.disabled():
+        print(f"\n[mini (2, 4)] port per rank: bytes {traced['coll_bytes']} calls "
+              f"{traced['coll_counts']}; reference compiled (GSPMD) per device: bytes "
+              f"{ref['bytes']} calls {ref['counts']}")
+    assert sum(ref["bytes"].values()) > 0
+
+
+def test_multipod_table_equals_the_references(tmp_path):
+    """``bench.roofline_table.multipod_table`` and the JAX package's
+    ``benchmarks/roofline_table.py::multipod_table`` give the same string on
+    the same synthetic 512-chip records (a traced cell with fallbacks, one
+    without, a skipped one; a 256-chip record that neither reads)."""
+    from benchmarks.roofline_table import multipod_table as ref_multipod_table
+
+    base = {"mesh": "2x16x16", "chips": 512, "memory_analysis": {"temp_size_in_bytes": 3 * 2**30}}
+    records = {
+        "glm4-9b_train_4k_512": dict(base, arch="glm4-9b", shape="train_4k",
+                                     fallbacks=["kv_heads:dim2"]),
+        "qwen2.5-32b_train_4k_512": dict(base, arch="qwen2.5-32b", shape="train_4k", fallbacks=[],
+                                         memory_analysis={"temp_size_in_bytes": 7.5 * 2**30}),
+        "glm4-9b_long_500k_512": {"arch": "glm4-9b", "shape": "long_500k", "skipped": "full attention"},
+        "glm4-9b_train_4k_256": dict(base, arch="glm4-9b", shape="train_4k", chips=256),
+    }
+    for tag, rec in records.items():
+        (tmp_path / f"{tag}.json").write_text(json.dumps(rec))
+    got = multipod_table(str(tmp_path))
+    assert got == ref_multipod_table(str(tmp_path))
+    assert got.count("\n") == 4 and "kv_heads:dim2" in got and "SKIP" in got
+
+
+def test_dryrun_main_over_the_production_meshes(tmp_path, capsys):
+    """``dryrun --mesh both`` writes a dense training cell's 256- and 512-chip
+    records (``multipod_table`` reads the second); the serving shapes and
+    another family over a mesh print ``[TODO]`` with the ROADMAP item and
+    write nothing."""
+    register(reduce(get_arch("glm4-9b")))
+    register(reduce(get_arch("mamba2-130m")))
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", "glm4-9b-smoke", "--mesh", "both", "--out", str(tmp_path)])
+    assert done.value.code == 0
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", "mamba2-130m-smoke", "--shape", "train_4k", "--mesh", "single",
+                     "--out", str(tmp_path)])
+    assert done.value.code == 0
+    out = capsys.readouterr().out
+    assert "[OK] glm4-9b-smoke_train_4k_256" in out and "[OK] glm4-9b-smoke_train_4k_512" in out
+    assert "[TODO] glm4-9b-smoke_prefill_32k_256" in out and "ROADMAP" in out
+    assert "[TODO] mamba2-130m-smoke_train_4k_256" in out
+    names = sorted(f.name for f in tmp_path.glob("*.json"))
+    assert "glm4-9b-smoke_train_4k_256.json" in names and "glm4-9b-smoke_train_4k_512.json" in names
+    assert not any(n.startswith("mamba2") or "prefill" in n or "decode" in n for n in names)
+    rec = json.loads((tmp_path / "glm4-9b-smoke_train_4k_256.json").read_text())
+    assert rec["chips"] == 256 and rec["coll_bytes"] > 0 and rec["collective_s"] > 0
+    assert "glm4-9b-smoke | train_4k | yes" in multipod_table(str(tmp_path))

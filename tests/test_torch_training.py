@@ -479,11 +479,12 @@ def test_run_resumes_bit_identically(tmp_path, monkeypatch):
 
 
 def test_run_raises_on_a_mesh_and_unported_family(capsys):
-    """A mesh of two devices still raises; the default ``--arch``
-    (mamba2-130m) trains one smoke step."""
+    """A mesh of two devices with no process group behind it raises
+    ``ValueError`` naming the missing group (nothing falls back to one
+    device); the default ``--arch`` (mamba2-130m) trains one smoke step."""
     from repro_torch.distributed.sharding import ShardMesh
 
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="no process group"):
         train.run(train.TrainConfig(**RUN), mesh=ShardMesh((torch.device("cpu"),) * 2), device="cpu")
     train.main(["--smoke", "--device", "cpu", "--steps", "1", "--seq-len", "32"])
     out = capsys.readouterr().out
